@@ -1,0 +1,72 @@
+"""The port stands alone: no module of ``panogrf_tpu_torch`` imports JAX,
+flax or the JAX package, and its entry points run on CUDA unless the
+caller asks for the CPU."""
+
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import panogrf_tpu_torch
+from panogrf_tpu_torch.renderer import full_render
+from panogrf_tpu_torch.renderer.renderer import NeuralRayGenRenderer
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "panogrf_tpu_torch"
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        panogrf_tpu_torch.__path__, "panogrf_tpu_torch."))
+
+
+def test_every_module_imports_without_jax():
+    code = ("import importlib, sys\n"
+            f"for m in {_modules()!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'panogrf_tpu'))\n"
+            "print(len(sys.modules), bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_no_source_file_mentions_jax():
+    pattern = re.compile(r"import jax|from jax|flax|panogrf_tpu\.")
+    offenders = [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")
+                 if pattern.search(p.read_text())]
+    assert len(_modules()) >= 18
+    assert not offenders, offenders
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    """Without ``device="cpu"`` and with no CUDA device, each entry point
+    raises instead of falling back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    kw = dict(height=32, width=64, depth_hw=(32, 64), depth_sample_num=8,
+              fine_depth_sample_num=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        NeuralRayGenRenderer(**kw)
+    model = NeuralRayGenRenderer(**kw, device="cpu")
+    rng = np.random.default_rng(0)
+    ref_info = {"imgs": rng.uniform(size=(2, 32, 64, 3)),
+                "mvs_depth": rng.uniform(1, 5, size=(2, 32, 64, 1)),
+                "w2c": np.tile(np.eye(3, 4), (2, 1, 1))}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        full_render.prepare_ref_data(model, ref_info)
+    ref = full_render.prepare_ref_data(model, ref_info, device="cpu")
+    c2w, dr = np.eye(3, 4), np.asarray([[0.5, 15.0]])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        full_render.render_image_device(model, ref, c2w, dr, dr.repeat(2, 0),
+                                        chunk=256)
+    rgb = full_render.render_image_device(model, ref, c2w, dr,
+                                          dr.repeat(2, 0), chunk=256,
+                                          device="cpu")
+    assert rgb.shape == (32, 64, 3)
