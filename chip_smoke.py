@@ -3,15 +3,22 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``panogrf_tpu_torch/csrc``, holds each kernel
-against its plain PyTorch version on the card, renders 512x1024 frames of
-the serving render at full width (``serving`` and ``turbo`` at their
-256-ray chunk, then ``serving`` at 4096-ray chunks), checks that the path
-went through the kernels, profiles fine-pass chunks of both sizes, and
-checks the CUDA path against the CPU path at 64x128.  Each phase prints
-one JSON line; any failure raises, so the process exits non-zero.  The
-last three lines are the card's name and power limit, the kernel table
-and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
-the rest of the repository, it fails before printing a result.
+(``mlp2``, ``mlp3``) and each kernel's autograd Function against its plain
+PyTorch version on the card, then drives the port's two paths at full
+width:
+
+* serving: 512x1024 frames (``serving`` and ``turbo`` at their 256-ray
+  chunk, then ``serving`` at 4096-ray chunks), with profiles of fine-pass
+  chunks of both sizes, and the CUDA path against the CPU path at 64x128;
+* training: the training CLI on the 2-view 512x1024 recipe (1 warm-up and
+  5 timed Adam steps, with a profile of one more step), and one training
+  step on CUDA against the same step on the CPU at 64x128.
+
+Each path checks that it went through its kernels.  Each phase prints one
+JSON line; any failure raises, so the process exits non-zero.  The last
+three lines are the card's name and power limit, the kernel table and
+``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
+rest of the repository, it fails before printing a result.
 """
 
 from __future__ import annotations
@@ -25,14 +32,21 @@ import time
 import numpy as np
 import torch
 
+from panogrf_tpu_torch.data import imgs_info
+from panogrf_tpu_torch.data.synthetic import (SphereScene,
+                                              make_three_view_sample)
+from panogrf_tpu_torch.nn.blocks import resize_linear
 from panogrf_tpu_torch.ops.kernels import _build, fused_mlp
 from panogrf_tpu_torch.renderer import full_render
 from panogrf_tpu_torch.renderer.presets import (PRESET_CHUNK,
                                                 PRESET_COARSE_LOWRES,
                                                 preset_kwargs)
 from panogrf_tpu_torch.renderer.renderer import NeuralRayGenRenderer
+from panogrf_tpu_torch.tools import train_renderer
+from panogrf_tpu_torch.train import trainer as trainer_mod
 
 H, W, DH, DW, RFN = 512, 1024, 256, 512, 2
+TRAIN_CFG = "configs/gen/neuray_gen_cv_erp_mono_stereo_uniform_512x1024.yaml"
 # H100 SXM data-sheet peaks (dense): HBM bytes/s and bf16 tensor FLOP/s
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -68,10 +82,13 @@ def event_time_ms(fn, iters: int, warmup: int = 3) -> float:
 
 
 def _cuda_kernel_rows(prof) -> list:
+    """(name, device us, count) of each GPU kernel; ranges such as
+    ``Optimizer.step#Adam.step`` span kernels already counted."""
     return [(e.key, e.device_time_total, e.count)
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.device_time_total > 0]
+            and e.device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
 
 
 def profiler_time_ms(fn, iters: int = 50) -> float:
@@ -91,12 +108,28 @@ def profiler_time_ms(fn, iters: int = 50) -> float:
 # kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def mlp2_inputs(n, din, dh, dout, dtype, seed):
+def mlp_inputs(n, dims, dtype, seed):
+    """x (n, dims[0]) and W, b of each layer of widths ``dims``, seeded."""
     g = torch.Generator().manual_seed(seed)
-    shapes = [((n, din), 1.0), ((din, dh), din ** -0.5), ((dh,), 0.1),
-              ((dh, dout), dh ** -0.5), ((dout,), 0.1)]
+    shapes = [((n, dims[0]), 1.0)]
+    for a, b in zip(dims[:-1], dims[1:]):
+        shapes += [((a, b), a ** -0.5), ((b,), 0.1)]
     return [(torch.randn(s, generator=g) * sc).to("cuda", dtype)
             for s, sc in shapes]
+
+
+def mlp_bound_ms(n, dims, dtype) -> tuple:
+    """(least time in ms, what bounds it) of an MLP over n rows: each input
+    read once and the output written once at the HBM rate, against the
+    matmul operations at the dtype's peak rate."""
+    elt = torch.finfo(dtype).bits // 8
+    weights = sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
+    nbytes = elt * (n * (dims[0] + dims[-1]) + weights)
+    flops = 2 * n * sum(a * b for a, b in zip(dims[:-1], dims[1:]))
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), nbytes, flops
 
 
 def check_mlp2() -> dict:
@@ -111,7 +144,7 @@ def check_mlp2() -> dict:
     for dtype, rel in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
         errs[dtype] = rels[dtype] = 0.0
         for i, (n, din, dh, dout, a1, a2) in enumerate(cases):
-            args = mlp2_inputs(n, din, dh, dout, dtype, seed=i)
+            args = mlp_inputs(n, (din, dh, dout), dtype, seed=i)
             got = fused_mlp.mlp2(*args, a1, a2)
             want = fused_mlp.mlp2_plain(*args, a1, a2)
             torch.cuda.synchronize()
@@ -128,7 +161,7 @@ def check_mlp2() -> dict:
 
     # time at the serving path's shape and dtype
     n, din, dh, dout = 16384, 16, 16, 1
-    args = mlp2_inputs(n, din, dh, dout, torch.bfloat16, seed=9)
+    args = mlp_inputs(n, (din, dh, dout), torch.bfloat16, seed=9)
 
     def kernel():
         return fused_mlp.mlp2(*args, "elu", "relu")
@@ -139,29 +172,131 @@ def check_mlp2() -> dict:
     # the device's queue of pending launches
     k_ms, p_ms = event_time_ms(kernel, 200), event_time_ms(plain, 50)
     k_prof_ms, p_prof_ms = profiler_time_ms(kernel), profiler_time_ms(plain)
-    elt = 2
-    nbytes = elt * (n * (din + dout) + din * dh + dh + dh * dout + dout)
-    flops = 2 * n * (din * dh + dh * dout)
-    t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+    bound, bound_by, _, _ = mlp_bound_ms(n, (din, dh, dout), torch.bfloat16)
     row = {"name": "mlp2", "route": "cuda",
            "source": "panogrf_tpu_torch/csrc/fused_mlp.cu",
            "replaces": "panogrf_tpu/ops/pallas/fused_mlp.py:51",
            "launches": None,
            "max_abs_err": max(errs.values()),
-           "ms": k_ms, "plain_ms": p_ms, "bound_ms": max(t_bytes, t_ops),
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "library_ms": None,
+           "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
+           "bound_by": bound_by, "library_ms": None,
            "max_err_fp32": errs[torch.float32],
            "max_err_bf16": errs[torch.bfloat16],
            "max_rel_err_fp32": rels[torch.float32],
            "max_rel_err_bf16": rels[torch.bfloat16],
            "kernel_us": k_ms * 1e3, "plain_us": p_ms * 1e3,
-           "bound_us": max(t_bytes, t_ops) * 1e3,
+           "bound_us": bound * 1e3,
            "profiler_ms": k_prof_ms, "plain_profiler_ms": p_prof_ms,
            "shape": [n, din, dh, dout], "dtype": "bfloat16"}
     emit({"phase": "kernel_time", **row})
     return row
+
+
+MLP3_HEAD = (65536, (32, 32, 32, 2), ("elu", "elu", "softplus"))
+
+
+def check_mlp3() -> dict:
+    """mlp3 kernel vs mlp3_plain at the dist-decoder head shape, a ragged
+    row count and a wide shape; float32 within 1e-5 of the output scale,
+    bfloat16 within 2e-2 (the plain version rounds its hidden layers to
+    bfloat16, the kernel keeps them in float32).  Then its time at the
+    head shape in bfloat16.  No path calls mlp3: ``main`` counts its
+    launches on the main paths, which must be 0."""
+    cases = [MLP3_HEAD,
+             (65533, (32, 32, 32, 1), ("elu", "elu", "sigmoid")),
+             (16384, (35, 64, 64, 32), ("elu", "elu", "none"))]
+    errs, rels = {}, {}
+    for dtype, rel in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        errs[dtype] = rels[dtype] = 0.0
+        for i, (n, dims, acts) in enumerate(cases):
+            args = mlp_inputs(n, dims, dtype, seed=20 + i)
+            got = fused_mlp.mlp3(*args, acts)
+            want = fused_mlp.mlp3_plain(*args, acts)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            scale = max(1.0, want.float().abs().max().item())
+            emit({"phase": "kernel_check", "kernel": "mlp3",
+                  "dtype": str(dtype), "shape": [n, *dims], "acts": acts,
+                  "max_abs_err": err, "scale": scale})
+            if not err <= rel * scale:
+                raise AssertionError(f"mlp3 {dtype} {n}x{dims}: error {err}"
+                                     f" > {rel} x {scale}")
+            errs[dtype] = max(errs[dtype], err)
+            rels[dtype] = max(rels[dtype], err / scale)
+
+    n, dims, acts = MLP3_HEAD
+    args = mlp_inputs(n, dims, torch.bfloat16, seed=29)
+
+    def kernel():
+        return fused_mlp.mlp3(*args, acts)
+
+    def plain():
+        return fused_mlp.mlp3_plain(*args, acts)
+    k_ms, p_ms = event_time_ms(kernel, 200), event_time_ms(plain, 50)
+    k_prof_ms, p_prof_ms = profiler_time_ms(kernel), profiler_time_ms(plain)
+    bound, bound_by, nbytes, flops = mlp_bound_ms(n, dims, torch.bfloat16)
+    row = {"name": "mlp3", "route": "cuda",
+           "source": "panogrf_tpu_torch/csrc/fused_mlp.cu",
+           "replaces": "panogrf_tpu/ops/pallas/fused_mlp.py:146",
+           "launches": None,                # counted on the main paths
+           "max_abs_err": max(errs.values()),
+           "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
+           "bound_by": bound_by, "library_ms": None,
+           "max_err_fp32": errs[torch.float32],
+           "max_err_bf16": errs[torch.bfloat16],
+           "max_rel_err_fp32": rels[torch.float32],
+           "max_rel_err_bf16": rels[torch.bfloat16],
+           "kernel_us": k_ms * 1e3, "plain_us": p_ms * 1e3,
+           "bound_us": bound * 1e3, "bound_bytes": nbytes,
+           "bound_flops": flops,
+           "profiler_ms": k_prof_ms, "plain_profiler_ms": p_prof_ms,
+           "shape": [n, *dims], "acts": acts, "dtype": "bfloat16"}
+    emit({"phase": "kernel_time", **row})
+    return row
+
+
+def grad_check() -> None:
+    """_Mlp2Fn and _Mlp3Fn on CUDA (kernel forward, backward through the
+    plain version) against autograd through the plain versions on CUDA,
+    float32: the output and the gradients of x and of every weight and
+    bias within 1e-4 of each one's scale.  Each forward must launch its
+    kernel once."""
+    cases = [("mlp2", 32768, (16, 16, 1), ("elu", "relu")), ("mlp3", *MLP3_HEAD)]
+    for name, n, dims, acts in cases:
+        kernel = getattr(fused_mlp, name)
+        plain = getattr(fused_mlp, name + "_plain")
+        config = acts if name == "mlp2" else (acts,)
+        args = mlp_inputs(n, dims, torch.float32, seed=40)
+        g = torch.randn(n, dims[-1], generator=torch.Generator()
+                        .manual_seed(41)).cuda()
+        results = []
+        for fn in (kernel, plain):
+            xs = [a.clone().requires_grad_(True) for a in args]
+            before = (fused_mlp.MLP2_LAUNCHES, fused_mlp.MLP3_LAUNCHES)
+            out = fn(*xs, *config)
+            launched = (fused_mlp.MLP2_LAUNCHES - before[0],
+                        fused_mlp.MLP3_LAUNCHES - before[1])
+            out.backward(g)
+            results.append((out.detach(), [x.grad for x in xs], launched))
+        (out_k, grads_k, launched), (out_p, grads_p, _) = results
+        want_launched = (1, 0) if name == "mlp2" else (0, 1)
+        errs = []
+        for a, b in zip([out_k] + grads_k, [out_p] + grads_p):
+            errs.append([(a - b).abs().max().item(),
+                         max(b.abs().max().item(), 1e-30)])
+        emit({"phase": "grad_check", "kernel": name, "shape": [n, *dims],
+              "acts": list(acts), "dtype": "float32",
+              "kernel_launches": launched[want_launched.index(1)],
+              "max_abs_err_out": errs[0][0],
+              "max_abs_err_grads": [e for e, _ in errs[1:]],
+              "grad_scales": [sc for _, sc in errs[1:]]})
+        if launched != want_launched:
+            raise AssertionError(f"{name}: forward launched {launched}")
+        for (err, scale), what in zip(errs, ["out", "x", "w1", "b1", "w2",
+                                             "b2", "w3", "b3"]):
+            if not err <= 1e-4 * scale:
+                raise AssertionError(f"{name} grad_check {what}: error {err}"
+                                     f" > 1e-4 x {scale}")
 
 
 # ---------------------------------------------------------------------------
@@ -182,7 +317,9 @@ def bench_inputs(h, w, dh, dw):
     return ref_info, c2w, np.asarray([[0.5, 15.0]])
 
 
-def render_full_width() -> dict:
+def render_full_width() -> tuple:
+    """The serving frames at 512x1024; returns ({preset: mlp2 launches of
+    its first frame}, mlp3 launches over the frames' first runs)."""
     model = NeuralRayGenRenderer(
         height=H, width=W, depth_hw=(DH, DW), **preset_kwargs("serving"),
         device="cuda", generator=torch.Generator().manual_seed(0))
@@ -191,7 +328,7 @@ def render_full_width() -> dict:
     ref = full_render.prepare_ref_data(model, ref_info)
     torch.cuda.synchronize()
     prep_ms = (time.perf_counter() - t0) * 1e3
-    launches, first_rgb = {}, {}
+    launches, first_rgb, mlp3_launches = {}, {}, 0
     # the presets at their chunk, then serving at a 16x larger chunk
     # (chunking is pure blocking: fewer, larger launches of the same work)
     runs = [("serving", PRESET_CHUNK["serving"]),
@@ -206,12 +343,13 @@ def render_full_width() -> dict:
                 model, ref, c2w, qdr, ref_info["depth_range"], chunk=chunk,
                 coarse_lowres=f)
         torch.cuda.reset_peak_memory_stats()
-        fused_mlp.MLP2_LAUNCHES = 0
+        fused_mlp.MLP2_LAUNCHES = fused_mlp.MLP3_LAUNCHES = 0
         t0 = time.perf_counter()
         rgb = frame()                                  # warm-up, counted
         torch.cuda.synchronize()
         first_ms = (time.perf_counter() - t0) * 1e3
-        count = fused_mlp.MLP2_LAUNCHES
+        count, count3 = fused_mlp.MLP2_LAUNCHES, fused_mlp.MLP3_LAUNCHES
+        mlp3_launches += count3
         launches.setdefault(preset, count)
         first_rgb.setdefault(preset, rgb)
         peak = torch.cuda.max_memory_allocated()
@@ -237,6 +375,7 @@ def render_full_width() -> dict:
               "depth_hw": [DH, DW], "samples": [64, 64],
               "chunk": chunk, "coarse_lowres": f,
               "dtype": "bfloat16", "mlp2_launches": count,
+              "mlp3_launches": count3,
               "ms_per_frame": statistics.median(dev_ms),
               "ms_per_frame_runs": dev_ms, "host_ms_runs": host_ms,
               "first_frame_ms": first_ms, "prepare_ref_ms": prep_ms,
@@ -248,7 +387,7 @@ def render_full_width() -> dict:
     for chunk, n_chunks in ((256, 16), (4096, 2)):
         profile_chunks(model, ref, c2w, qdr, ref_info["depth_range"], chunk,
                        n_chunks)
-    return launches
+    return launches, mlp3_launches
 
 
 def profile_chunks(model, ref, c2w, qdr, dr, chunk: int,
@@ -331,6 +470,163 @@ def cuda_vs_cpu() -> None:
         raise AssertionError(f"cuda vs cpu: err {err}, launches {launches}")
 
 
+# ---------------------------------------------------------------------------
+# renderer training
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 6          # 1 warm-up + 5 timed
+
+
+def train_full_width() -> tuple:
+    """The training CLI, in process, on the 2-view 512x1024 recipe at full
+    width (64 + 64 samples, 512 rays a step, render + depth losses,
+    exp-decay lr, float32) over a pool of 2 scenes rendered on the card:
+    ``train_renderer.build``, ``fit`` and ``save``, as its ``main`` runs
+    them, with the initial weights kept between build and fit.  Asserts
+    finite losses, that every parameter moved and the mlp2 launches per
+    step (one ``out_geometry_fc`` launch per pass: coarse and fine).
+    Returns (mlp2 launches per step, mlp3 launches over all steps)."""
+    argv = ["--cfg", TRAIN_CFG, "--steps", str(TRAIN_STEPS), "--pool", "2",
+            "--log-interval", "1"]
+    steps = []
+
+    def on_step(step, metrics):
+        torch.cuda.synchronize()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        steps.append({"step": step, "loss": metrics["loss"],
+                      "terms": metrics, "t": time.perf_counter(), "ev": ev,
+                      "mlp2_launches": fused_mlp.MLP2_LAUNCHES,
+                      "mlp3_launches": fused_mlp.MLP3_LAUNCHES})
+        fused_mlp.MLP2_LAUNCHES = fused_mlp.MLP3_LAUNCHES = 0
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer, stream, num_steps = train_renderer.build(
+        train_renderer.parse_args(argv), on_step)
+    init = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    fused_mlp.MLP2_LAUNCHES = fused_mlp.MLP3_LAUNCHES = 0
+    trainer.fit(stream, num_steps, key_metric="psnr_nr")
+    trainer.save("latest")
+    total_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    after = trainer.model.state_dict()
+    torch.cuda.synchronize()
+    dev_ms = [a["ev"].elapsed_time(b["ev"]) for a, b in zip(steps, steps[1:])]
+    host_ms = [(b["t"] - a["t"]) * 1e3 for a, b in zip(steps, steps[1:])]
+    launches = [s["mlp2_launches"] for s in steps]
+    launches3 = [s["mlp3_launches"] for s in steps]
+    still = [k for k in init if torch.equal(init[k], after[k])]
+    losses = [s["loss"] for s in steps]
+    emit({"phase": "train", "cfg": TRAIN_CFG, "hw": [H, W],
+          "depth_hw": [DH, DW], "samples": [64, 64], "rays": 512,
+          "dtype": "float32", "steps": len(steps), "losses": losses,
+          "terms_last": steps[-1]["terms"] if steps else None,
+          "ms_per_step": statistics.median(dev_ms) if dev_ms else None,
+          "ms_per_step_runs": dev_ms, "host_ms_runs": host_ms,
+          "host_ms_per_step": statistics.median(host_ms) if host_ms
+          else None, "cli_seconds": total_s, "peak_mem_bytes": peak,
+          "mlp2_launches_per_step": launches,
+          "mlp3_launches_per_step": launches3,
+          "params_moved": len(init) - len(still), "params": len(init),
+          "params_unchanged": still})
+    if len(steps) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"train: losses {losses}")
+    if still:
+        raise AssertionError(f"train: parameters unchanged after "
+                             f"{TRAIN_STEPS} steps: {still}")
+    if launches != [2] * TRAIN_STEPS:
+        raise AssertionError(f"train: mlp2 launches per step {launches}, "
+                             f"expected 2 (coarse and fine out_geometry_fc)")
+    profile_train_step(trainer, stream)
+    return launches[-1], sum(launches3)
+
+
+def profile_train_step(trainer, stream) -> None:
+    """Device time by kernel over one more training step of the same
+    trainer and batch stream (torch.profiler), and the share of the step
+    the device was busy."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.fit(stream, 1)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = _cuda_kernel_rows(prof)
+    busy = sum(r[1] for r in rows)
+    rows.sort(key=lambda r: -r[1])
+    emit({"phase": "train_profile", "what": "one training step",
+          "wall_us": wall_us, "device_busy_us": busy,
+          "device_busy_share": busy / wall_us,
+          "kernels": sum(r[2] for r in rows),
+          "top_kernels": [{"kernel": k[:80], "us": t, "count": c}
+                          for k, t, c in rows[:10]]})
+
+
+def train_cuda_vs_cpu() -> None:
+    """One training step at 64x128 (depth 32x64, 32 + 32 samples, 512
+    rays) from the same seeded weights, scene, rays and sampling draws, on
+    CUDA through the kernels and on the CPU through the plain versions:
+    loss within 1e-4 relative, each parameter's gradient within 1e-3 of
+    its scale (plus a floor for the gradients that are exactly 0).
+
+    The rays avoid the image's border rows and columns.  A ray in column
+    0 points along -z, and so do its points as the reference views see
+    them: their longitude sits on the +-pi seam, where the projection
+    gives x = 0 or x = W - 1 by the sign of a rounding error, and the
+    features gathered there jump by a pixel.  With border rays one CPU
+    step in float32 and in float64 differ by 2e-3 in the loss; without
+    them by 2e-7."""
+    h, w, dh, dw, dn = 64, 128, 32, 64, 32
+    scene = SphereScene.random(5)
+    sample = make_three_view_sample(scene, h, w, 1.0, seed=5)      # on CPU
+    coords = imgs_info.sample_train_coords(np.random.default_rng(5), h - 2,
+                                           w - 2, 512) + 1
+    cfg = trainer_mod.TrainerConfig(losses=("render", "depth"), seed=5)
+    results = {}
+    for device in ("cuda", "cpu"):
+        model = NeuralRayGenRenderer(
+            height=h, width=w, depth_hw=(dh, dw), depth_sample_num=dn,
+            fine_depth_sample_num=dn, gather_depth_major=True,
+            device=device, generator=torch.Generator().manual_seed(5))
+        s = {k: v.to(device) for k, v in sample.items()}
+        data = imgs_info.build_render_sample(s, coords.to(device),
+                                             src_for_mvs=False)
+        data["ref_imgs_info"]["mvs_depth"] = resize_linear(
+            s["depth_panos"][list(imgs_info.REF_IDS)], (dh, dw), axes=(1, 2))
+        opt, schedule = trainer_mod.make_optimizer(cfg, model.parameters())
+        step = trainer_mod.make_train_step(lambda b, g: model(b, g), cfg,
+                                           opt, schedule)
+        before = fused_mlp.MLP2_LAUNCHES
+        metrics = step(data, torch.Generator().manual_seed(5), 0)
+        launches = fused_mlp.MLP2_LAUNCHES - before
+        results[device] = (float(metrics["loss"]),
+                           {n: p.grad.detach().cpu()
+                            for n, p in model.named_parameters()}, launches)
+    (loss_c, grads_c, launches), (loss_p, grads_p, _) = results.values()
+    # a parameter whose exact gradient is 0 (a conv bias in front of an
+    # instance norm) gets rounding noise on both sides: the limit has a
+    # floor of 1e-6 x the largest gradient of the tree
+    floor = 1e-6 * max(g.abs().max().item() for g in grads_p.values())
+    share = {n: (grads_c[n] - grads_p[n]).abs().max().item()
+             / (1e-3 * grads_p[n].abs().max().item() + floor)
+             for n in grads_p}
+    bad = [n for n, s in share.items() if s > 1]
+    worst = sorted(share.items(), key=lambda kv: -kv[1])[:5]
+    loss_rel = abs(loss_c - loss_p) / abs(loss_p)
+    emit({"phase": "train_cuda_vs_cpu", "hw": [h, w], "depth_hw": [dh, dw],
+          "samples": [dn, dn], "rays": 512, "dtype": "float32",
+          "loss_cuda": loss_c, "loss_cpu": loss_p, "loss_rel_err": loss_rel,
+          "mlp2_launches_cuda": launches, "params": len(grads_p),
+          "grad_worst_limit_share": worst, "grad_abs_floor": floor,
+          "params_over_limit": bad})
+    if launches != 2 or not loss_rel <= 1e-4 or bad:
+        raise AssertionError(f"train cuda vs cpu: loss rel {loss_rel}, "
+                             f"launches {launches}, over limit {bad}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -351,13 +647,22 @@ def main() -> int:
                     if "registers" in ln or "spill" in ln]})
 
     row = check_mlp2()
-    launches = render_full_width()
+    row3 = check_mlp3()
+    grad_check()
+    launches, mlp3_serving = render_full_width()
     row["launches"] = launches["serving"]
     row["launches_turbo"] = launches["turbo"]
     cuda_vs_cpu()
+    row["launches_train_per_step"], mlp3_train = train_full_width()
+    # no path of either package calls mlp3: the main paths launch it 0 times
+    row3["launches"] = mlp3_serving + mlp3_train
+    if row3["launches"] != 0:
+        raise AssertionError(f"mlp3 launched {row3['launches']} times on the "
+                             f"main paths, which have no caller of it")
+    train_cuda_vs_cpu()
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi)
-    emit({"kernels": [row]})
+    emit({"kernels": [row, row3]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

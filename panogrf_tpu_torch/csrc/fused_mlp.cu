@@ -102,11 +102,112 @@ int launch(const void* x, const void* w1, const void* b1, const void* w2,
   return int(cudaGetLastError());
 }
 
+// Fused three-layer MLP: out = act3(act2(act1(x @ W1 + b1) @ W2 + b2) @ W3 + b3).
+//
+// Replaces panogrf_tpu/ops/pallas/fused_mlp.py:_mlp3_kernel (the TPU kernel
+// behind mlp3 / mlp3_batched), with the same numerics: float32 accumulation,
+// both hidden layers kept in float32, output cast to x's dtype.
+//
+// Design: one thread per row, all six weight tensors staged once per block in
+// shared memory as float32.  The first hidden layer h1[H1] is computed in full
+// (it feeds every unit of layer 2); each unit of layer 2 is then computed,
+// activated and folded straight into the Dout output accumulators, so only h1
+// and acc are live per thread and h2 never exists in full.
+//
+// What bounds it: bytes.  At the dist-decoder head shape (65 536 rows,
+// 32 -> 32 -> 32 -> 2, bfloat16) a call moves 65 536 x (32 + 2) x 2 B ~= 4.5 MB,
+// ~1.3 us at 3.35 TB/s, against ~0.5 us of bf16 tensor-core work.  The two
+// per-thread arrays live in local memory (dynamic indexing), which, with one
+// row per thread and uncoalesced row loads, keeps this first version far from
+// that bound; making it fast is later work.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+mlp3_kernel(const T* __restrict__ x, const T* __restrict__ w1,
+            const T* __restrict__ b1, const T* __restrict__ w2,
+            const T* __restrict__ b2, const T* __restrict__ w3,
+            const T* __restrict__ b3, T* __restrict__ out, int n, int din,
+            int h1, int h2, int dout, int act1, int act2, int act3) {
+  extern __shared__ float smem[];
+  float* sw1 = smem;                 // (din, h1)
+  float* sb1 = sw1 + din * h1;       // (h1)
+  float* sw2 = sb1 + h1;             // (h1, h2)
+  float* sb2 = sw2 + h1 * h2;        // (h2)
+  float* sw3 = sb2 + h2;             // (h2, dout)
+  float* sb3 = sw3 + h2 * dout;      // (dout)
+  for (int i = threadIdx.x; i < din * h1; i += blockDim.x) sw1[i] = to_f32(w1[i]);
+  for (int i = threadIdx.x; i < h1; i += blockDim.x) sb1[i] = to_f32(b1[i]);
+  for (int i = threadIdx.x; i < h1 * h2; i += blockDim.x) sw2[i] = to_f32(w2[i]);
+  for (int i = threadIdx.x; i < h2; i += blockDim.x) sb2[i] = to_f32(b2[i]);
+  for (int i = threadIdx.x; i < h2 * dout; i += blockDim.x) sw3[i] = to_f32(w3[i]);
+  for (int i = threadIdx.x; i < dout; i += blockDim.x) sb3[i] = to_f32(b3[i]);
+  __syncthreads();
+
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (row >= n) return;
+  const T* xr = x + row * din;
+  float hid[kMaxHidden];
+  for (int j = 0; j < h1; ++j) {
+    float h = sb1[j];
+    for (int i = 0; i < din; ++i) h = fmaf(to_f32(xr[i]), sw1[i * h1 + j], h);
+    hid[j] = act(h, act1);
+  }
+  float acc[kMaxDout];
+  for (int k = 0; k < dout; ++k) acc[k] = sb3[k];
+  for (int u = 0; u < h2; ++u) {
+    float h = sb2[u];
+    for (int j = 0; j < h1; ++j) h = fmaf(hid[j], sw2[j * h2 + u], h);
+    h = act(h, act2);
+    for (int k = 0; k < dout; ++k) acc[k] = fmaf(h, sw3[u * dout + k], acc[k]);
+  }
+  T* orow = out + row * dout;
+  for (int k = 0; k < dout; ++k) orow[k] = from_f32<T>(act(acc[k], act3));
+}
+
+template <typename T>
+int launch3(const void* x, const void* w1, const void* b1, const void* w2,
+            const void* b2, const void* w3, const void* b3, void* out, int n,
+            int din, int h1, int h2, int dout, int act1, int act2, int act3,
+            cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (size_t(din) * h1 + h1 + size_t(h1) * h2 +
+                                       h2 + size_t(h2) * dout + dout);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        mlp3_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (e != cudaSuccess) return int(e);
+  }
+  const int blocks = (n + kThreads - 1) / kThreads;
+  mlp3_kernel<T><<<blocks, kThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w1), static_cast<const T*>(b1),
+      static_cast<const T*>(w2), static_cast<const T*>(b2), static_cast<const T*>(w3),
+      static_cast<const T*>(b3), static_cast<T*>(out), n, din, h1, h2, dout, act1,
+      act2, act3);
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 
-// Plain C entry point for ctypes.  dtype: 0 = float32, 1 = bfloat16.
-// Returns the launch's cudaGetLastError() (0 on success); -1 for arguments
-// outside what the kernel supports (the Python wrapper checks them first).
+// Plain C entry points for ctypes.  dtype: 0 = float32, 1 = bfloat16.
+// Each returns the launch's cudaGetLastError() (0 on success); -1 for
+// arguments outside what the kernel supports (the Python wrapper checks them
+// first).
+extern "C" int panogrf_mlp3(const void* x, const void* w1, const void* b1,
+                            const void* w2, const void* b2, const void* w3,
+                            const void* b3, void* out, int n, int din, int h1,
+                            int h2, int dout, int act1, int act2, int act3,
+                            int dtype, void* stream) {
+  if (n <= 0 || din <= 0 || h1 <= 0 || h2 <= 0 || dout <= 0 || din > kMaxDin ||
+      h1 > kMaxHidden || h2 > kMaxHidden || dout > kMaxDout)
+    return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch3<float>(x, w1, b1, w2, b2, w3, b3, out, n, din, h1, h2, dout,
+                          act1, act2, act3, s);
+  if (dtype == 1)
+    return launch3<__nv_bfloat16>(x, w1, b1, w2, b2, w3, b3, out, n, din, h1, h2,
+                                  dout, act1, act2, act3, s);
+  return -1;
+}
+
 extern "C" int panogrf_mlp2(const void* x, const void* w1, const void* b1,
                             const void* w2, const void* b2, void* out, int n,
                             int din, int dh, int dout, int act1, int act2,

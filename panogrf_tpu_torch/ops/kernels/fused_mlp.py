@@ -1,19 +1,24 @@
-"""Fused two-layer MLP: the hand-written CUDA kernel and its plain version.
+"""Fused two- and three-layer MLPs: the hand-written CUDA kernels and their
+plain versions.
 
 Port of ``panogrf_tpu/ops/pallas/fused_mlp.py``'s ``mlp2`` /
-``mlp2_batched``.  ``mlp2`` launches ``csrc/fused_mlp.cu`` for CUDA tensors
-and takes the plain PyTorch version ``mlp2_plain`` only for CPU tensors;
-a CUDA tensor the kernel does not take raises.  Serving needs no gradient;
-the backward comes with the training slice.
+``mlp2_batched`` and ``mlp3`` / ``mlp3_batched``.  For CUDA tensors
+``mlp2`` and ``mlp3`` launch ``csrc/fused_mlp.cu`` through one
+``autograd.Function``, ``_MlpFn``, whose backward differentiates the plain
+version on the saved inputs, as the JAX package's custom VJPs do
+(``fused_mlp.py:115-129,200-214``).  CPU tensors take the plain versions
+``mlp2_plain`` / ``mlp3_plain``, which autograd differentiates natively; a
+CUDA tensor the kernel does not take raises.
 """
 
 from __future__ import annotations
 
 import torch
 
-# Launches of the CUDA kernel in this process (a plain counter: callers
-# reset it to 0 and read it back to see that a path went through it).
+# Launches of each CUDA kernel in this process (plain counters: callers
+# reset them to 0 and read them back to see that a path went through them).
 MLP2_LAUNCHES = 0
+MLP3_LAUNCHES = 0
 
 ACTS = {"none": 0, "elu": 1, "relu": 2, "sigmoid": 3, "softplus": 4}
 MAX_DIN, MAX_HIDDEN, MAX_DOUT = 256, 64, 64
@@ -35,35 +40,110 @@ def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
     raise ValueError(kind)
 
 
+def _mlp_plain(x, layers, acts) -> torch.Tensor:
+    """``act_i(x @ W_i + b_i)`` through ``layers`` [(W, b), ...] in turn;
+    each layer's output stays in x's dtype."""
+    for (w, b), a in zip(layers, acts):
+        x = _act(x @ w + b, a)
+    return x
+
+
 def mlp2_plain(x, w1, b1, w2, b2, act1: str = "elu",
                act2: str = "elu") -> torch.Tensor:
     """Plain version, equal to the JAX package's ``_mlp2_ref`` (the hidden
     activation is rounded to x's dtype)."""
-    return _act(_act(x @ w1 + b1, act1) @ w2 + b2, act2)
+    return _mlp_plain(x, [(w1, b1), (w2, b2)], (act1, act2))
 
 
-def _check(x, w1, b1, w2, b2, act1, act2):
+def mlp3_plain(x, w1, b1, w2, b2, w3, b3,
+               acts=("elu", "elu", "none")) -> torch.Tensor:
+    """Plain version, equal to the JAX package's ``_mlp3_ref``."""
+    return _mlp_plain(x, [(w1, b1), (w2, b2), (w3, b3)], acts)
+
+
+def _check(name: str, x, layers, acts) -> None:
+    """Raise on what the kernel does not take: ``layers`` is
+    [(W (in, out), b (out,)), ...], ``acts`` one activation per layer."""
     n, din = x.shape
-    dh, dout = w1.shape[1], w2.shape[1]
-    if act1 not in ACTS or act2 not in ACTS:
-        raise ValueError(f"unknown activation {act1!r}/{act2!r}")
+    if any(a not in ACTS for a in acts):
+        raise ValueError(f"unknown activation in {acts!r}")
     if x.dtype not in _DTYPES:
-        raise TypeError(f"mlp2 kernel takes float32 or bfloat16, got "
+        raise TypeError(f"{name} kernel takes float32 or bfloat16, got "
                         f"{x.dtype}")
-    if w1.shape != (din, dh) or b1.shape != (dh,) or w2.shape != (dh, dout) \
-            or b2.shape != (dout,):
-        raise ValueError("mlp2 weight shapes do not match x")
-    if n == 0 or din > MAX_DIN or dh > MAX_HIDDEN or dout > MAX_DOUT:
-        raise ValueError(f"mlp2 kernel supports 0 < N, Din <= {MAX_DIN}, "
-                         f"H <= {MAX_HIDDEN}, Dout <= {MAX_DOUT}; got "
-                         f"N={n}, {din}->{dh}->{dout}")
-    for t in (x, w1, b1, w2, b2):
+    dims = [din]
+    for w, b in layers:
+        if w.dim() != 2 or w.shape[0] != dims[-1] or b.shape != w.shape[1:]:
+            raise ValueError(f"{name} weight shapes do not match x")
+        dims.append(w.shape[1])
+    if n == 0 or din > MAX_DIN or max(dims[1:-1]) > MAX_HIDDEN \
+            or dims[-1] > MAX_DOUT:
+        raise ValueError(f"{name} kernel supports 0 < N, Din <= {MAX_DIN}, "
+                         f"hidden <= {MAX_HIDDEN}, Dout <= {MAX_DOUT}; got "
+                         f"N={n}, {'->'.join(map(str, dims))}")
+    for t in [x] + [t for wb in layers for t in wb]:
         if t.device != x.device:
-            raise ValueError("mlp2 operands lie on different devices")
+            raise ValueError(f"{name} operands lie on different devices")
         if t.dtype != x.dtype:
-            raise TypeError("mlp2 weights must have x's dtype")
+            raise TypeError(f"{name} weights must have x's dtype")
         if not t.is_contiguous():
-            raise ValueError("mlp2 kernel takes contiguous tensors only")
+            raise ValueError(f"{name} kernel takes contiguous tensors only")
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _launch(name: str, x, layers, acts) -> torch.Tensor:
+    """One launch of the ``panogrf_<name>`` kernel on checked CUDA operands
+    (``layers`` [(W, b), ...], ``acts`` one activation per layer)."""
+    from panogrf_tpu_torch.ops.kernels._build import load_library
+    lib = load_library()
+    n, din = x.shape
+    widths = [w.shape[1] for w, _ in layers]
+    out = torch.empty((n, widths[-1]), dtype=x.dtype, device=x.device)
+    rc = getattr(lib, f"panogrf_{name}")(
+        x.data_ptr(), *[t.data_ptr() for wb in layers for t in wb],
+        out.data_ptr(), n, din, *widths, *[ACTS[a] for a in acts],
+        _DTYPES[x.dtype], _stream(x))
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed (CUDA error {rc})")
+    global MLP2_LAUNCHES, MLP3_LAUNCHES
+    if name == "mlp2":
+        MLP2_LAUNCHES += 1
+    else:
+        MLP3_LAUNCHES += 1
+    return out
+
+
+class _MlpFn(torch.autograd.Function):
+    """Forward: the ``name`` kernel.  Backward: autograd through
+    ``_mlp_plain`` on the saved inputs (the JAX package's ``_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, name, acts, x, *params):
+        ctx.save_for_backward(x, *params)
+        ctx.acts = acts
+        return _launch(name, x, list(zip(params[::2], params[1::2])), acts)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.enable_grad():
+            x, *params = [t.detach().requires_grad_(True)
+                          for t in ctx.saved_tensors]
+            out = _mlp_plain(x, list(zip(params[::2], params[1::2])),
+                             ctx.acts)
+            grads = torch.autograd.grad(out, [x, *params], g)
+        return (None, None, *grads)
+
+
+def _on_cuda(name: str, x: torch.Tensor) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raise otherwise."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} runs on CUDA or CPU tensors, got "
+                         f"{x.device}")
+    return True
 
 
 def mlp2(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
@@ -74,26 +154,24 @@ def mlp2(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     :param x: (N, Din); w1 (Din, H); b1 (H,); w2 (H, Dout); b2 (Dout,).
     :return: (N, Dout) in x's dtype.
     """
-    if x.device.type == "cpu":
+    if not _on_cuda("mlp2", x):
         return mlp2_plain(x, w1, b1, w2, b2, act1, act2)
-    if x.device.type != "cuda":
-        raise ValueError(f"mlp2 runs on CUDA or CPU tensors, got {x.device}")
-    _check(x, w1, b1, w2, b2, act1, act2)
-    from panogrf_tpu_torch.ops.kernels._build import load_library
-    lib = load_library()
-    n, din = x.shape
-    dh, dout = w1.shape[1], w2.shape[1]
-    out = torch.empty((n, dout), dtype=x.dtype, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.panogrf_mlp2(x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                          w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-                          n, din, dh, dout, ACTS[act1], ACTS[act2],
-                          _DTYPES[x.dtype], stream)
-    if rc != 0:
-        raise RuntimeError(f"mlp2 kernel launch failed (CUDA error {rc})")
-    global MLP2_LAUNCHES
-    MLP2_LAUNCHES += 1
-    return out
+    _check("mlp2", x, [(w1, b1), (w2, b2)], (act1, act2))
+    return _MlpFn.apply("mlp2", (act1, act2), x, w1, b1, w2, b2)
+
+
+def mlp3(x: torch.Tensor, w1, b1, w2, b2, w3, b3,
+         acts=("elu", "elu", "none")) -> torch.Tensor:
+    """Fused 3-layer MLP ``act3(act2(act1(x@w1+b1)@w2+b2)@w3+b3)``.
+
+    :param x: (N, Din); w1 (Din, H1); w2 (H1, H2); w3 (H2, Dout).
+    :return: (N, Dout) in x's dtype.
+    """
+    acts = tuple(acts)
+    if not _on_cuda("mlp3", x):
+        return mlp3_plain(x, w1, b1, w2, b2, w3, b3, acts)
+    _check("mlp3", x, [(w1, b1), (w2, b2), (w3, b3)], acts)
+    return _MlpFn.apply("mlp3", acts, x, w1, b1, w2, b2, w3, b3)
 
 
 def mlp2_batched(x: torch.Tensor, w1, b1, w2, b2, act1: str = "elu",
@@ -102,3 +180,11 @@ def mlp2_batched(x: torch.Tensor, w1, b1, w2, b2, act1: str = "elu",
     lead = x.shape[:-1]
     out = mlp2(x.reshape(-1, x.shape[-1]), w1, b1, w2, b2, act1, act2)
     return out.reshape(*lead, w2.shape[1])
+
+
+def mlp3_batched(x: torch.Tensor, w1, b1, w2, b2, w3, b3,
+                 acts=("elu", "elu", "none")) -> torch.Tensor:
+    """mlp3 over arbitrary leading dims: x (..., Din) -> (..., Dout)."""
+    lead = x.shape[:-1]
+    out = mlp3(x.reshape(-1, x.shape[-1]), w1, b1, w2, b2, w3, b3, acts)
+    return out.reshape(*lead, w3.shape[1])

@@ -185,7 +185,7 @@ class IBRNetWithNeuRay(nn.Module):
     """
 
     def __init__(self, neuray_in_dim: int = 32, in_feat_ch: int = 32,
-                 n_samples: int = 64, geometry_only: bool = False):
+                 geometry_only: bool = False):
         super().__init__()
         self.geometry_only = geometry_only
         f = in_feat_ch + 3
@@ -193,8 +193,16 @@ class IBRNetWithNeuRay(nn.Module):
             self.add_module(name, _Seq(dims(f, neuray_in_dim)))
         self.ray_attention = MultiHeadAttention()
         self.out_geometry_fc = _Seq((16, 16, 1), final_act="relu")
-        self.register_buffer("pos_encoding", torch.from_numpy(
-            sinusoid_pos_encoding(n_samples, 16)), persistent=False)
+        self._pos = {}          # (dn, device, dtype) -> position table
+
+    def _pos_encoding(self, dn: int, like: torch.Tensor) -> torch.Tensor:
+        """The (dn, 16) position table for the pass's sample count (it
+        changes with ``fine_depth_use_all`` and count-jitter training)."""
+        key = (dn, like.device, like.dtype)
+        if key not in self._pos:
+            self._pos[key] = torch.from_numpy(
+                sinusoid_pos_encoding(dn, 16)).to(like.device, like.dtype)
+        return self._pos[key]
 
     def forward(self, rgb_feat, neuray_feat, ray_diff, mask,
                 dnr_dims: tuple | None = None) -> torch.Tensor:
@@ -226,10 +234,7 @@ class IBRNetWithNeuRay(nn.Module):
             geo = geo.reshape(nr, dn, 16).to(dt)
             rgb_out = rgb_out.reshape(nr, dn, 3)
             num_valid_obs = nvalid.reshape(nr, dn, 1).float()
-        if dn != self.pos_encoding.shape[0]:
-            raise ValueError(f"built for {self.pos_encoding.shape[0]} "
-                             f"samples, got {dn}")
-        globalfeat = geo + self.pos_encoding.to(dt)[None]
+        globalfeat = geo + self._pos_encoding(dn, geo)[None]
         attn_mask = (num_valid_obs[..., 0] > 1).to(dt)
         globalfeat = self.ray_attention(globalfeat, attn_mask[..., None])
         sigma = self.out_geometry_fc(globalfeat).float()
@@ -241,12 +246,12 @@ class DefaultAggregationNet(nn.Module):
     """prob-embed + dir-diff + IBRNetWithNeuRay."""
 
     def __init__(self, neuray_dim: int = 32, in_feat_ch: int = 32,
-                 n_samples: int = 64, geometry_only: bool = False):
+                 geometry_only: bool = False):
         super().__init__()
         self.prob_embed = nn.Sequential(nn.Linear(neuray_dim + 2, neuray_dim),
                                         nn.ReLU(),
                                         nn.Linear(neuray_dim, neuray_dim))
-        self.agg_impl = IBRNetWithNeuRay(neuray_dim, in_feat_ch, n_samples,
+        self.agg_impl = IBRNetWithNeuRay(neuray_dim, in_feat_ch,
                                          geometry_only)
 
     def forward(self, prj_dict: dict) -> tuple:

@@ -93,6 +93,10 @@ class MixtureLogisticsDistDecoder(nn.Module):
         return (self.mean_decoder(feats), self.var_decoder(feats),
                 self.aw_decoder(feats))
 
+    def predict_mean(self, feats: torch.Tensor) -> torch.Tensor:
+        """Expected-depth head of the depth loss: the mixture means."""
+        return self.mean_decoder(feats)
+
 
 def compute_prob(near: torch.Tensor, far: torch.Tensor, mean: torch.Tensor,
                  var: torch.Tensor, aw: torch.Tensor) -> tuple:

@@ -1,9 +1,12 @@
 """Ray sampling, projection and compositing for the renderer.
 
-Port of the deterministic serving half of
-``panogrf_tpu/renderer/render_ops.py``.  Projections come out point-major
-(qn, rn, dn, rfn, c), or depth-major (qn, dn, rn, rfn, c) with
-``out["layout"] == "dnr"``.
+Port of ``panogrf_tpu/renderer/render_ops.py`` (the renderer's hierarchical
+path).  Projections come out point-major (qn, rn, dn, rfn, c), or
+depth-major (qn, dn, rn, rfn, c) with ``out["layout"] == "dnr"``.
+
+Stochastic sampling draws from an explicit ``torch.Generator`` on the CPU
+(``uniform``), so a run on the card and a run on the CPU with the same seed
+sample the same depths.
 """
 
 from __future__ import annotations
@@ -14,9 +17,19 @@ from panogrf_tpu_torch.core.sphere import SphereConvention
 from panogrf_tpu_torch.ops.resample import interpolate_feats_pointmajor
 
 
+def uniform(generator: torch.Generator, shape: tuple,
+            device=None) -> torch.Tensor:
+    """U[0, 1) float32 draws of ``shape`` from the CPU ``generator``, moved
+    to ``device``: every random number of the sampling comes from here."""
+    return torch.rand(shape, generator=generator).to(device)
+
+
 def sample_depth(qn: int, rn: int, dn: int, near: float, far: float,
-                 use_disp: bool, device=None) -> tuple:
-    """Evenly spaced (in depth or disparity) sample depths.
+                 use_disp: bool, device=None,
+                 generator: torch.Generator | None = None) -> tuple:
+    """Evenly spaced (in depth or disparity) sample depths; with a
+    ``generator``, each inner tick is jittered by (u - 0.5) * 0.999 of an
+    interval (stratified training samples).
 
     :return: (que_depth (qn, rn, dn), que_dists (qn, rn, dn)).
     """
@@ -24,7 +37,11 @@ def sample_depth(qn: int, rn: int, dn: int, near: float, far: float,
     lo, hi = (1.0 / near, 1.0 / far) if use_disp else (near, far)
     interval = (hi - lo) / (dn - 1)
     val = torch.arange(1, dn - 1, dtype=torch.float32, device=device)
-    val = val.expand(qn, rn, dn - 2)
+    if generator is not None:
+        val = val + (uniform(generator, (qn, rn, dn - 2), device) - 0.5) \
+            * 0.999
+    else:
+        val = val.expand(qn, rn, dn - 2)
     ticks = torch.cat([torch.zeros(qn, rn, 1, device=device), interval * val,
                        torch.full((qn, rn, 1), hi - lo, device=device)], -1)
     depth = 1.0 / (1.0 / near + ticks) if use_disp else near + ticks
@@ -47,14 +64,18 @@ def depth2inv_dists(depth: torch.Tensor,
 
 def sample_fine_depth(depth: torch.Tensor, hit_prob: torch.Tensor,
                       depth_range: torch.Tensor, fdn: int,
-                      inv_mode: bool = True) -> torch.Tensor:
-    """Deterministic hierarchical inverse-CDF sampling.
+                      inv_mode: bool = True,
+                      generator: torch.Generator | None = None
+                      ) -> torch.Tensor:
+    """Hierarchical inverse-CDF sampling at evenly spaced u, or at random
+    u from ``generator``.
 
     The inverse CDF is the JAX package's summation form,
     F^-1(u) = bins[0] + sum_j (bins[j+1]-bins[j]) *
     clip((u-cdf[j]) / (cdf[j+1]-cdf[j]), 0, 1),
     not ``searchsorted``, so the two give the same samples.
-    :return: (qn, rn, fdn) fine depths, already sorted.
+    :return: (qn, rn, fdn) fine depths, sorted unless ``generator`` is
+        given.
     """
     if inv_mode:
         near = -1.0 / depth_range[0, 0]
@@ -66,12 +87,15 @@ def sample_fine_depth(depth: torch.Tensor, hit_prob: torch.Tensor,
     pdf = pdf / torch.sum(pdf, -1, keepdim=True)
     cdf = torch.cumsum(pdf, -1)
     cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], -1)
-    u = (torch.arange(fdn, dtype=torch.float32, device=depth.device)
-         + 0.5) / fdn
+    if generator is None:
+        u = (torch.arange(fdn, dtype=torch.float32, device=depth.device)
+             + 0.5) / fdn
+    else:
+        u = uniform(generator, (*cdf.shape[:-1], fdn), depth.device)
     bin_w = bins[..., 1:] - bins[..., :-1]
     cdf0 = cdf[..., :-1]
     dcdf = torch.clamp(cdf[..., 1:] - cdf[..., :-1], min=1e-10)
-    t = (u[:, None] - cdf0[..., None, :]) / dcdf[..., None, :]
+    t = (u[..., :, None] - cdf0[..., None, :]) / dcdf[..., None, :]
     fine = bins[..., :1] + torch.sum(bin_w[..., None, :]
                                      * torch.clamp(t, 0.0, 1.0), -1)
     if inv_mode:
@@ -83,6 +107,13 @@ def gather_at_coords(grid: torch.Tensor,
                      coords: torch.Tensor) -> torch.Tensor:
     """Index an (H, W, C) grid at integer pixel coords (..., 2)."""
     return grid[coords[..., 1].long(), coords[..., 0].long()]
+
+
+def gather_at_coords_batched(grids: torch.Tensor,
+                             coords: torch.Tensor) -> torch.Tensor:
+    """Index (B, H, W, C) grids at integer coords (B, N, 2) -> (B, N, C)."""
+    b = torch.arange(grids.shape[0], device=grids.device)[:, None]
+    return grids[b, coords[..., 1].long(), coords[..., 0].long()]
 
 
 def depth2points_spherical(coords: torch.Tensor, que_depth: torch.Tensor,

@@ -1,11 +1,12 @@
 """Generalizable spherical radiance-field renderer (NeuralRayGenRenderer).
 
-Port of the serving path of ``panogrf_tpu/renderer/renderer.py``:
-per-scene encoding (``prepare_ref``) and the deterministic coarse + fine
-passes over a chunk of rays.  Submodule and parameter names follow the
-reference PyTorch state dict, so ``load_state_dict`` takes a reference
-renderer checkpoint and ``utils.from_jax.load_jax_params`` takes the JAX
-package's parameter tree.
+Port of ``panogrf_tpu/renderer/renderer.py``'s hierarchical mode:
+per-scene encoding (``prepare_ref``), the coarse + fine passes over a
+chunk of rays (deterministic for serving, stochastic with a generator for
+training) and the training forward with its depth-loss head.  Submodule
+and parameter names follow the reference PyTorch state dict, so
+``load_state_dict`` takes a reference renderer checkpoint and
+``utils.from_jax.load_jax_params`` takes the JAX package's parameter tree.
 
 Per chunk: sample_depth -> depth2points -> project into the reference
 views and gather -> logistic-mixture probabilities -> aggregation ->
@@ -21,6 +22,7 @@ from torch import nn
 
 from panogrf_tpu_torch.core.sphere import get_convention
 from panogrf_tpu_torch.nn.blocks import ResUNetLight, resize_linear
+from panogrf_tpu_torch.ops.resample import interpolate_feats
 from panogrf_tpu_torch.renderer import render_ops as ro
 from panogrf_tpu_torch.renderer.agg_net import DefaultAggregationNet
 from panogrf_tpu_torch.renderer.dist_decoder import (
@@ -48,13 +50,16 @@ def init_parameters_(module: nn.Module, generator: torch.Generator) -> None:
 
 class NeuralRayGenRenderer(nn.Module):
     """Generalizable renderer; constructor flags as in the JAX package
-    (the ``serving``/``turbo``/``exact`` presets' set)."""
+    (the ``serving``/``turbo``/``exact`` presets' set and the training
+    recipe's)."""
 
     def __init__(self, *, convention_name: str = "m3d", height: int = 512,
                  width: int = 1024, depth_hw: tuple = (256, 512),
                  min_depth: float = 0.5, max_depth: float = 15.0,
                  mvs_min_depth: float = 0.1, mvs_max_depth: float = 10.0,
                  depth_sample_num: int = 64, fine_depth_sample_num: int = 64,
+                 use_hierarchical_sampling: bool = True,
+                 fine_depth_use_all: bool = False,
                  use_disp: bool = True, compute_dtype: str = "float32",
                  fast_gather: bool = False, gather_depth_major: bool = False,
                  gather_stride: int = 1, gather_stride_fine: int = 0,
@@ -69,6 +74,8 @@ class NeuralRayGenRenderer(nn.Module):
         self.min_depth, self.max_depth = min_depth, max_depth
         self.depth_sample_num = depth_sample_num
         self.fine_depth_sample_num = fine_depth_sample_num
+        self.use_hierarchical_sampling = use_hierarchical_sampling
+        self.fine_depth_use_all = fine_depth_use_all
         self.use_disp = use_disp
         self.compute_dtype = getattr(torch, compute_dtype)
         self.fast_gather = fast_gather
@@ -83,10 +90,10 @@ class NeuralRayGenRenderer(nn.Module):
         self.vis_encoder = DefaultVisEncoder()
         self.dist_decoder = MixtureLogisticsDistDecoder()
         self.agg_net = DefaultAggregationNet(
-            n_samples=depth_sample_num, geometry_only=coarse_geometry_only)
-        self.fine_dist_decoder = MixtureLogisticsDistDecoder()
-        self.fine_agg_net = DefaultAggregationNet(
-            n_samples=fine_depth_sample_num)
+            geometry_only=coarse_geometry_only and use_hierarchical_sampling)
+        if use_hierarchical_sampling:
+            self.fine_dist_decoder = MixtureLogisticsDistDecoder()
+            self.fine_agg_net = DefaultAggregationNet()
         init_parameters_(self, generator if generator is not None
                          else torch.Generator().manual_seed(0))
         self.register_buffer(
@@ -188,35 +195,49 @@ class NeuralRayGenRenderer(nn.Module):
     # coarse + fine
     # ------------------------------------------------------------------
 
-    def _coarse_depth(self, coords: torch.Tensor) -> torch.Tensor:
+    def _coarse_depth(self, coords: torch.Tensor,
+                      generator: torch.Generator | None = None
+                      ) -> torch.Tensor:
         qn, rn, _ = coords.shape
         return ro.sample_depth(qn, rn, self.depth_sample_num, self.min_depth,
                                self.max_depth, self.use_disp,
-                               coords.device)[0]
+                               coords.device, generator)[0]
 
-    def _fine_pass(self, ref_data, coords, que_depth, hit_prob, que_c2w,
-                   que_depth_range, ref_depth_range) -> dict:
-        fine_depth = ro.sample_fine_depth(que_depth, hit_prob,
-                                          que_depth_range,
-                                          self.fine_depth_sample_num,
-                                          inv_mode=self.use_disp)
-        return self.render_by_depth(fine_depth, coords, que_c2w,
-                                    que_depth_range, ref_data,
-                                    ref_depth_range, is_fine=True)
+    def _fine_depth(self, que_depth, hit_prob, que_depth_range,
+                    generator: torch.Generator | None = None,
+                    fine_samples: int | None = None) -> torch.Tensor:
+        fine_depth = ro.sample_fine_depth(
+            que_depth, hit_prob, que_depth_range,
+            fine_samples or self.fine_depth_sample_num,
+            inv_mode=self.use_disp, generator=generator)
+        # evenly spaced u through the monotone inverse CDF come out sorted;
+        # random u do not
+        return fine_depth if generator is None \
+            else torch.sort(fine_depth, -1).values
 
     def render_rays(self, ref_data: dict, coords: torch.Tensor,
                     que_c2w: torch.Tensor, que_depth_range: torch.Tensor,
-                    ref_depth_range: torch.Tensor) -> dict:
-        """Deterministic coarse + fine rendering of a chunk of rays; fine
-        outputs carry a ``_fine`` suffix."""
-        que_depth = self._coarse_depth(coords)
+                    ref_depth_range: torch.Tensor,
+                    generator: torch.Generator | None = None,
+                    fine_samples: int | None = None) -> dict:
+        """Coarse (+ fine) rendering of a chunk of rays; fine outputs carry
+        a ``_fine`` suffix.  A ``generator`` makes the sampling stochastic
+        (training); ``fine_samples`` overrides the fine sample count."""
+        que_depth = self._coarse_depth(coords, generator)
         outputs = self.render_by_depth(que_depth, coords, que_c2w,
                                        que_depth_range, ref_data,
                                        ref_depth_range, is_fine=False)
-        fine_out = self._fine_pass(ref_data, coords, que_depth,
-                                   outputs["hit_prob_nr"], que_c2w,
-                                   que_depth_range, ref_depth_range)
-        outputs.update({k + "_fine": v for k, v in fine_out.items()})
+        if self.use_hierarchical_sampling:
+            fine_depth = self._fine_depth(
+                que_depth, outputs["hit_prob_nr"].detach(), que_depth_range,
+                generator, fine_samples)
+            if self.fine_depth_use_all:
+                fine_depth = torch.sort(torch.cat([que_depth, fine_depth],
+                                                  -1), -1).values
+            fine_out = self.render_by_depth(fine_depth, coords, que_c2w,
+                                            que_depth_range, ref_data,
+                                            ref_depth_range, is_fine=True)
+            outputs.update({k + "_fine": v for k, v in fine_out.items()})
         return outputs
 
     def coarse_hit_probs(self, ref_data: dict, coords: torch.Tensor,
@@ -235,7 +256,68 @@ class NeuralRayGenRenderer(nn.Module):
                              que_depth_range: torch.Tensor,
                              ref_depth_range: torch.Tensor) -> dict:
         """Fine pass driven by an externally supplied coarse importance."""
-        fine_out = self._fine_pass(ref_data, coords,
-                                   self._coarse_depth(coords), hit_prob,
-                                   que_c2w, que_depth_range, ref_depth_range)
+        fine_depth = self._fine_depth(self._coarse_depth(coords), hit_prob,
+                                      que_depth_range)
+        fine_out = self.render_by_depth(fine_depth, coords, que_c2w,
+                                        que_depth_range, ref_data,
+                                        ref_depth_range, is_fine=True)
         return {**fine_out, **{k + "_fine": v for k, v in fine_out.items()}}
+
+    # ------------------------------------------------------------------
+    # training forward
+    # ------------------------------------------------------------------
+
+    def predict_mean_for_depth_loss(self, ray_feats: torch.Tensor,
+                                    coords: torch.Tensor) -> dict:
+        """Mixture means decoded from ray features sampled at (rfn, pn, 2)
+        full-res coords (the depth loss's prediction)."""
+        feats = interpolate_feats(ray_feats, coords, self.height, self.width)
+        mean = self.dist_decoder.predict_mean(feats)
+        out = {"depth_mean": mean[..., 0], "depth_mean_2": mean[..., 1]}
+        if self.use_hierarchical_sampling:
+            mean_f = self.fine_dist_decoder.predict_mean(feats)
+            out["depth_mean_fine"] = mean_f[..., 0]
+            out["depth_mean_fine_2"] = mean_f[..., 1]
+        return out
+
+    def forward(self, data: dict, generator: torch.Generator | None = None,
+                fine_samples: int | None = None) -> dict:
+        """Train-step forward (the JAX package's ``__call__``, hierarchical
+        mode).
+
+        ``data``: ``ref_imgs_info`` with imgs (rfn, H, W, 3), mvs_depth
+        (rfn, dh, dw, 1), depth_range (rfn, 2), w2c (rfn, 3, 4) and
+        optionally true_depth (rfn, H, W, 1); ``que_imgs_info`` with coords
+        (qn, rn, 2), c2w (3, 4), depth_range (qn, 2) and optionally imgs
+        (qn, H, W, 3); optionally ``depth_coords`` (rfn, pn, 2).
+        """
+        ref_info = data["ref_imgs_info"]
+        que_info = data["que_imgs_info"]
+        ref_data = self.prepare_ref(ref_info["imgs"], ref_info["mvs_depth"])
+        ref_data["w2c"] = ref_info["w2c"]
+        coords = que_info["coords"]
+        outputs = self.render_rays(ref_data, coords, que_info["c2w"],
+                                   que_info["depth_range"],
+                                   ref_info["depth_range"], generator,
+                                   fine_samples)
+        if "imgs" in que_info:
+            gt = ro.gather_at_coords_batched(que_info["imgs"], coords)
+            outputs["pixel_colors_gt"] = gt
+            if self.use_hierarchical_sampling:
+                outputs["pixel_colors_gt_fine"] = gt
+        qn, rn, _ = coords.shape
+        # every projection is valid on the sphere
+        outputs["ray_mask"] = torch.ones(qn, rn, dtype=torch.bool,
+                                         device=coords.device)
+        # per-ray sin(phi) weight of the polar-weighted render loss
+        outputs["polar_weights"] = torch.sin(
+            (coords[..., 1] + 0.5) * torch.pi / self.height)
+        if "true_depth" in ref_info:
+            depth_coords = data.get("depth_coords")
+            if depth_coords is None:
+                rfn = ref_info["imgs"].shape[0]
+                depth_coords = coords[0][None].expand(rfn, rn, 2)
+            outputs["depth_coords"] = depth_coords
+            outputs.update(self.predict_mean_for_depth_loss(
+                ref_data["ray_feats"], depth_coords))
+        return outputs

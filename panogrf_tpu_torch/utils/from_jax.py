@@ -1,10 +1,11 @@
-"""Load the JAX package's renderer parameters into the port.
+"""Carry renderer parameters between the JAX package and the port.
 
-The inverse of ``panogrf_tpu/utils/torch_convert.convert_renderer``: the
-JAX ``NeuralRayGenRenderer``'s ``params`` tree (a nested dict of numpy
-arrays) becomes a state dict in the reference PyTorch layout, which the
-port's modules use.  Conv kernels (kH, kW, I, O) become (O, I, kH, kW),
-Dense kernels (in, out) become Linear weights (out, in), and GroupNorm
+``renderer_state_dict`` is the inverse of
+``panogrf_tpu/utils/torch_convert.convert_renderer``: the JAX
+``NeuralRayGenRenderer``'s ``params`` tree (a nested dict of numpy arrays)
+becomes a state dict in the reference PyTorch layout, which the port's
+modules use.  Conv kernels (kH, kW, I, O) become (O, I, kH, kW), Dense
+kernels (in, out) become Linear weights (out, in), and GroupNorm
 ``scale``/``bias`` become the instance norms' ``weight``/``bias``.
 """
 
@@ -114,10 +115,13 @@ def renderer_state_dict(params: dict) -> dict:
     sd.conv_res_conv("init_net.depth_conv", p["init_net"]["depth_conv"], 1)
     sd.conv_res_conv("init_net.out_conv", p["init_net"]["out_conv"], 1)
     sd.conv_res_conv("vis_encoder.out_conv", p["vis_encoder"], 2)
+    # the fine modules exist only with hierarchical sampling
     for name in ("dist_decoder", "fine_dist_decoder"):
-        sd.dist_decoder(name, p[name])
+        if name in p:
+            sd.dist_decoder(name, p[name])
     for name in ("agg_net", "fine_agg_net"):
-        sd.agg_net(name, p[name])
+        if name in p:
+            sd.agg_net(name, p[name])
     return dict(sd)
 
 

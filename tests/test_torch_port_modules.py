@@ -33,6 +33,7 @@ from panogrf_tpu_torch.renderer import render_ops as tro
 from panogrf_tpu_torch.renderer.presets import preset_kwargs
 from panogrf_tpu_torch.renderer.renderer import NeuralRayGenRenderer as TR
 from panogrf_tpu_torch.utils.from_jax import renderer_state_dict
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 H, W, DH, DW, DN = 32, 64, 32, 64, 32
 # float32 on both sides; convolution, matmul and reduction order differ
@@ -247,8 +248,7 @@ def test_aggregation_net(jax_model, layout, geometry_only):
     jd, jc = jagg.DefaultAggregationNet(
         n_samples=DN, geometry_only=geometry_only).apply(
         {"params": p["agg_net"]}, jprj, que_dir)
-    net = _load(tagg.DefaultAggregationNet(n_samples=DN,
-                                           geometry_only=geometry_only),
+    net = _load(tagg.DefaultAggregationNet(geometry_only=geometry_only),
                 sd, "agg_net")
     td, tc = net(tprj)
     np.testing.assert_allclose(_np(td), np.asarray(jd), **TOL)

@@ -18,6 +18,7 @@ from panogrf_tpu_torch.nn import blocks as tblocks
 from panogrf_tpu_torch.ops import resample as tresample
 from panogrf_tpu_torch.ops.kernels import _build
 from panogrf_tpu_torch.ops.kernels import fused_mlp as tmlp
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 ACTS = ["elu", "relu", "sigmoid", "softplus", "none"]
 # float32: matmul and reduction order differ between XLA and PyTorch
@@ -32,6 +33,19 @@ def _mlp_inputs(n, din, dh, dout, seed):
     return [rng.normal(size=s).astype(np.float32) * sc for s, sc in
             [((n, din), 1.0), ((din, dh), din ** -0.5), ((dh,), 0.1),
              ((dh, dout), dh ** -0.5), ((dout,), 0.1)]]
+
+
+def _mlp2_f64(arrs, act1, act2):
+    """The JAX ``_act`` formulas evaluated in float64 numpy."""
+    def act(v, kind):
+        return {"elu": lambda: np.where(v > 0, v, np.exp(np.minimum(v, 0)) - 1),
+                "relu": lambda: np.maximum(v, 0),
+                "sigmoid": lambda: 1 / (1 + np.exp(-v)),
+                "softplus": lambda: np.maximum(v, 0)
+                + np.log1p(np.exp(-np.abs(v))),
+                "none": lambda: v}[kind]()
+    x, w1, b1, w2, b2 = (a.astype(np.float64) for a in arrs)
+    return act(act(x @ w1 + b1, act1) @ w2 + b2, act2)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -50,6 +64,12 @@ def test_mlp2_plain_matches_jax_wide(dtype, act1, act2):
     assert t.shape == (5000, 32) and t.dtype == getattr(torch, dtype)
     tol = F32_TOL if dtype == "float32" else BF16_TOL
     out = t.float().numpy()
+    if dtype == "float32":
+        # the exact value first, so that a failure says which side strayed
+        exact = _mlp2_f64(arrs, act1, act2)
+        np.testing.assert_allclose(out, exact, **tol, err_msg="port")
+        np.testing.assert_allclose(np.asarray(j), exact, **tol,
+                                   err_msg="JAX")
     np.testing.assert_allclose(out, np.asarray(j, np.float32), **tol)
     np.testing.assert_allclose(out, np.asarray(ref, np.float32), **tol)
 

@@ -21,6 +21,7 @@ from panogrf_tpu_torch.renderer import full_render as tfr
 from panogrf_tpu_torch.renderer.presets import preset_kwargs
 from panogrf_tpu_torch.renderer.renderer import NeuralRayGenRenderer as TR
 from panogrf_tpu_torch.utils.from_jax import load_jax_params
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 H, W, DH, DW, DN, CHUNK = 32, 64, 32, 64, 32, 64
 # The fine depths are an inverse CDF of the coarse hit probability, which

@@ -15,6 +15,9 @@ import torch
 import panogrf_tpu_torch
 from panogrf_tpu_torch.renderer import full_render
 from panogrf_tpu_torch.renderer.renderer import NeuralRayGenRenderer
+from panogrf_tpu_torch.tools import train_renderer
+from panogrf_tpu_torch.train.trainer import Trainer
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "panogrf_tpu_torch"
@@ -42,7 +45,7 @@ def test_no_source_file_mentions_jax():
     pattern = re.compile(r"import jax|from jax|flax|panogrf_tpu\.")
     offenders = [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")
                  if pattern.search(p.read_text())]
-    assert len(_modules()) >= 18
+    assert len(_modules()) >= 30
     assert not offenders, offenders
 
 
@@ -70,3 +73,15 @@ def test_entry_points_default_to_cuda(monkeypatch):
                                           dr.repeat(2, 0), chunk=256,
                                           device="cpu")
     assert rgb.shape == (32, 64, 3)
+
+    # the training CLI and the trainer's model: CUDA unless asked
+    argv = ["--cfg", str(ROOT / "configs/gen_synthetic_small.yaml"),
+            "--steps", "1", "--pool", "1"]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_renderer.main(argv)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_renderer.build(train_renderer.parse_args(argv))
+    trainer = train_renderer.build(
+        train_renderer.parse_args(argv + ["--device", "cpu"]))[0]
+    assert isinstance(trainer, Trainer)
+    assert trainer.model.directions.device.type == "cpu"
