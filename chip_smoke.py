@@ -2,10 +2,14 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from ``panogrf_tpu_torch/csrc``, holds each kernel
-(``mlp2``, ``mlp3``) and each kernel's autograd Function against its plain
-PyTorch version on the card, then drives the port's two paths at full
-width:
+Builds the CUDA kernels from ``panogrf_tpu_torch/csrc`` (ptxas must report
+no stack frame and no spills for the specialised variants), holds every
+variant of each kernel (``mlp2``: ``lanes``, ``generic``; ``mlp3``:
+``mma``, ``rows``, ``generic``) and each kernel's autograd Function
+against its plain PyTorch version on the card, times each kernel at its
+path shapes beside ``generic``, the plain version, a read pass, a copy and
+the wrapper's host cost, then drives the port's two paths at full width
+(every ``mlp2`` launch there must take ``lanes``):
 
 * serving: 512x1024 frames (``serving`` and ``turbo`` at their 256-ray
   chunk, then ``serving`` at 4096-ray chunks), with profiles of fine-pass
@@ -24,6 +28,7 @@ rest of the repository, it fails before printing a result.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -54,6 +59,49 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def ptxas_kernels(log: str) -> dict:
+    """{kernel: {"registers", "stack", "spill_stores", "spill_loads"}} from
+    nvcc's ``-Xptxas=-v`` output."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:entry function '|Function properties for )"
+                      r"([\w$]+)", ln)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m and name:
+            out[name].update(stack=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def build() -> None:
+    """Build (or reuse) the kernels' library; print what ptxas reports for
+    each kernel.  The redesigned variants (``*_lanes_kernel``,
+    ``*_rows_kernel``, ``*_mma_kernel``) must have no stack frame and no
+    spills."""
+    _build.load_library()
+    info = _build.BUILD_INFO
+    kernels = ptxas_kernels(info["log"])
+    emit({"phase": "build", "seconds": info["seconds"],
+          "sources": info["sources"], "reused": not info["log"],
+          "ptxas": kernels})
+    new = {k: v for k, v in kernels.items()
+           if re.search("(lanes|rows|mma)_kernel", k)}
+    if info["log"] and len(new) < 4:
+        raise AssertionError(f"ptxas reported {len(new)} redesigned kernels")
+    for k, v in new.items():
+        if v.get("stack") or v.get("spill_stores") or v.get("spill_loads"):
+            raise AssertionError(f"{k}: stack frame or spills {v}")
 
 
 def gpu_name_and_power() -> str:
@@ -108,14 +156,17 @@ def profiler_time_ms(fn, iters: int = 50) -> float:
 # kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def mlp_inputs(n, dims, dtype, seed):
-    """x (n, dims[0]) and W, b of each layer of widths ``dims``, seeded."""
+def mlp_inputs(n, dims, dtype, seed, offset=0):
+    """x (n, dims[0]) and W, b of each layer of widths ``dims``, seeded; x
+    is a view ``offset`` elements into its storage (1: not 16-byte
+    aligned)."""
     g = torch.Generator().manual_seed(seed)
-    shapes = [((n, dims[0]), 1.0)]
+    x = torch.randn(n * dims[0] + offset, generator=g)
+    out = [x.to("cuda", dtype)[offset:].view(n, dims[0])]
     for a, b in zip(dims[:-1], dims[1:]):
-        shapes += [((a, b), a ** -0.5), ((b,), 0.1)]
-    return [(torch.randn(s, generator=g) * sc).to("cuda", dtype)
-            for s, sc in shapes]
+        out += [(torch.randn((a, b), generator=g) * a ** -0.5).to("cuda", dtype),
+                (torch.randn((b,), generator=g) * 0.1).to("cuda", dtype)]
+    return out
 
 
 def mlp_bound_ms(n, dims, dtype) -> tuple:
@@ -132,127 +183,183 @@ def mlp_bound_ms(n, dims, dtype) -> tuple:
                                  else "operations"), nbytes, flops
 
 
-def check_mlp2() -> dict:
-    """mlp2 kernel vs mlp2_plain at the path shape, a ragged row count and
-    a wide shape; float32 within 1e-5 of the output scale, bfloat16
-    within 2e-2 (the plain version rounds its hidden layer to bfloat16,
-    the kernel keeps it in float32)."""
-    cases = [(16384, 16, 16, 1, "elu", "relu"),
-             (16381, 16, 16, 1, "elu", "relu"),
-             (16384, 35, 64, 32, "elu", "elu")]
-    errs, rels = {}, {}
-    for dtype, rel in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
-        errs[dtype] = rels[dtype] = 0.0
-        for i, (n, din, dh, dout, a1, a2) in enumerate(cases):
-            args = mlp_inputs(n, (din, dh, dout), dtype, seed=i)
-            got = fused_mlp.mlp2(*args, a1, a2)
-            want = fused_mlp.mlp2_plain(*args, a1, a2)
+def call_mlp(name, args, acts, plain=False):
+    """``mlp2``/``mlp3`` (or its plain version) on ``args`` = [x, W1, b1,
+    ...]."""
+    fn = getattr(fused_mlp, name + ("_plain" if plain else ""))
+    return fn(*args, *acts) if name == "mlp2" else fn(*args, acts)
+
+
+F32, BF16 = torch.float32, torch.bfloat16
+# (label, rows, widths, activations, x's storage offset, expected variant
+# in float32 and in bfloat16): the path widths, ragged and tiny row counts,
+# a misaligned x and the wide cases
+MLP_CASES = {
+    "mlp2": [(lbl, n, (16, 16, 1), ("elu", "relu"), off, {F32: v, BF16: v})
+             for lbl, n, off, v in [("path", 16384, 0, "lanes"),
+                                    ("ragged", 16381, 0, "lanes"),
+                                    ("n1", 1, 0, "lanes"),
+                                    ("n17", 17, 0, "lanes"),
+                                    ("misaligned", 16384, 1, "generic")]]
+    + [("wide", 16384, (35, 64, 32), ("elu", "elu"), 0,
+        {F32: "generic", BF16: "generic"})],
+    "mlp3": [(lbl, n, (32, 32, 32, 2), acts, off, want)
+             for lbl, n, acts, off, want in [
+                 ("path", 65536, ("elu", "elu", "softplus"), 0,
+                  {F32: "rows", BF16: "mma"}),
+                 ("ragged", 65533, ("elu", "elu", "sigmoid"), 0,
+                  {F32: "rows", BF16: "mma"}),
+                 ("n1", 1, ("elu", "relu", "softplus"), 0,
+                  {F32: "rows", BF16: "mma"}),
+                 ("n17", 17, ("relu", "elu", "none"), 0,
+                  {F32: "rows", BF16: "mma"}),
+                 ("misaligned", 65536, ("elu", "elu", "softplus"), 1,
+                  {F32: "generic", BF16: "generic"})]]
+    + [("dout1", 65533, (32, 32, 32, 1), ("elu", "elu", "sigmoid"), 0,
+        {F32: "generic", BF16: "generic"}),
+       ("wide", 16384, (35, 64, 64, 32), ("elu", "elu", "none"), 0,
+        {F32: "generic", BF16: "generic"})],
+}
+
+
+def check_kernel(name: str) -> dict:
+    """Every case of ``MLP_CASES[name]`` against the plain version on the
+    card: float32 within 1e-5 of the output scale, bfloat16 within 2e-2
+    (the plain version rounds each layer's output to bfloat16).  Each case
+    must launch the expected variant once.  Returns the largest errors."""
+    errs = {F32: 0.0, BF16: 0.0}
+    rels = {F32: 0.0, BF16: 0.0}
+    for dtype, rel in ((F32, 1e-5), (BF16, 2e-2)):
+        for i, (label, n, dims, acts, off, want) in enumerate(MLP_CASES[name]):
+            args = mlp_inputs(n, dims, dtype, seed=i + 20 * (name == "mlp3"),
+                              offset=off)
+            before = dict(fused_mlp.VARIANT_LAUNCHES)
+            got = call_mlp(name, args, acts)
+            ran = {k: v - before[k] for k, v in
+                   fused_mlp.VARIANT_LAUNCHES.items() if v != before[k]}
+            want_plain = call_mlp(name, args, acts, plain=True)
             torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            scale = max(1.0, want.float().abs().max().item())
-            emit({"phase": "kernel_check", "kernel": "mlp2",
-                  "dtype": str(dtype), "shape": [n, din, dh, dout],
-                  "acts": [a1, a2], "max_abs_err": err, "scale": scale})
-            if not err <= rel * scale:
-                raise AssertionError(f"mlp2 {dtype} {n}x{din}->{dh}->{dout}"
-                                     f": error {err} > {rel} x {scale}")
-            errs[dtype] = max(errs[dtype], err)
-            rels[dtype] = max(rels[dtype], err / scale)
-
-    # time at the serving path's shape and dtype
-    n, din, dh, dout = 16384, 16, 16, 1
-    args = mlp_inputs(n, (din, dh, dout), torch.bfloat16, seed=9)
-
-    def kernel():
-        return fused_mlp.mlp2(*args, "elu", "relu")
-
-    def plain():
-        return fused_mlp.mlp2_plain(*args, "elu", "relu")
-    # the plain version launches ~10 kernels a call: 50 calls stay inside
-    # the device's queue of pending launches
-    k_ms, p_ms = event_time_ms(kernel, 200), event_time_ms(plain, 50)
-    k_prof_ms, p_prof_ms = profiler_time_ms(kernel), profiler_time_ms(plain)
-    bound, bound_by, _, _ = mlp_bound_ms(n, (din, dh, dout), torch.bfloat16)
-    row = {"name": "mlp2", "route": "cuda",
-           "source": "panogrf_tpu_torch/csrc/fused_mlp.cu",
-           "replaces": "panogrf_tpu/ops/pallas/fused_mlp.py:51",
-           "launches": None,
-           "max_abs_err": max(errs.values()),
-           "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
-           "bound_by": bound_by, "library_ms": None,
-           "max_err_fp32": errs[torch.float32],
-           "max_err_bf16": errs[torch.bfloat16],
-           "max_rel_err_fp32": rels[torch.float32],
-           "max_rel_err_bf16": rels[torch.bfloat16],
-           "kernel_us": k_ms * 1e3, "plain_us": p_ms * 1e3,
-           "bound_us": bound * 1e3,
-           "profiler_ms": k_prof_ms, "plain_profiler_ms": p_prof_ms,
-           "shape": [n, din, dh, dout], "dtype": "bfloat16"}
-    emit({"phase": "kernel_time", **row})
-    return row
-
-
-MLP3_HEAD = (65536, (32, 32, 32, 2), ("elu", "elu", "softplus"))
-
-
-def check_mlp3() -> dict:
-    """mlp3 kernel vs mlp3_plain at the dist-decoder head shape, a ragged
-    row count and a wide shape; float32 within 1e-5 of the output scale,
-    bfloat16 within 2e-2 (the plain version rounds its hidden layers to
-    bfloat16, the kernel keeps them in float32).  Then its time at the
-    head shape in bfloat16.  No path calls mlp3: ``main`` counts its
-    launches on the main paths, which must be 0."""
-    cases = [MLP3_HEAD,
-             (65533, (32, 32, 32, 1), ("elu", "elu", "sigmoid")),
-             (16384, (35, 64, 64, 32), ("elu", "elu", "none"))]
-    errs, rels = {}, {}
-    for dtype, rel in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
-        errs[dtype] = rels[dtype] = 0.0
-        for i, (n, dims, acts) in enumerate(cases):
-            args = mlp_inputs(n, dims, dtype, seed=20 + i)
-            got = fused_mlp.mlp3(*args, acts)
-            want = fused_mlp.mlp3_plain(*args, acts)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            scale = max(1.0, want.float().abs().max().item())
-            emit({"phase": "kernel_check", "kernel": "mlp3",
+            err = (got.float() - want_plain.float()).abs().max().item()
+            scale = max(1.0, want_plain.float().abs().max().item())
+            emit({"phase": "kernel_check", "kernel": name, "case": label,
                   "dtype": str(dtype), "shape": [n, *dims], "acts": acts,
-                  "max_abs_err": err, "scale": scale})
+                  "x_offset": off, "variant": list(ran), "max_abs_err": err,
+                  "scale": scale})
+            if ran != {f"{name}_{want[dtype]}": 1}:
+                raise AssertionError(f"{name} {label} {dtype}: launched {ran}"
+                                     f", expected {want[dtype]}")
             if not err <= rel * scale:
-                raise AssertionError(f"mlp3 {dtype} {n}x{dims}: error {err}"
-                                     f" > {rel} x {scale}")
+                raise AssertionError(f"{name} {label} {dtype} {n}x{dims}: "
+                                     f"error {err} > {rel} x {scale}")
             errs[dtype] = max(errs[dtype], err)
             rels[dtype] = max(rels[dtype], err / scale)
+    return {"max_abs_err": max(errs.values()),
+            "max_err_fp32": errs[F32], "max_err_bf16": errs[BF16],
+            "max_rel_err_fp32": rels[F32], "max_rel_err_bf16": rels[BF16]}
 
-    n, dims, acts = MLP3_HEAD
-    args = mlp_inputs(n, dims, torch.bfloat16, seed=29)
 
-    def kernel():
-        return fused_mlp.mlp3(*args, acts)
+def host_us_per_call(fn, calls: int = 1000) -> float:
+    """Median host time of one call under inference mode, no
+    synchronisation inside the loop."""
+    times = []
+    with torch.inference_mode():
+        fn()
+        torch.cuda.synchronize()
+        for _ in range(calls):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    return statistics.median(times) * 1e6
 
-    def plain():
-        return fused_mlp.mlp3_plain(*args, acts)
-    k_ms, p_ms = event_time_ms(kernel, 200), event_time_ms(plain, 50)
-    k_prof_ms, p_prof_ms = profiler_time_ms(kernel), profiler_time_ms(plain)
-    bound, bound_by, nbytes, flops = mlp_bound_ms(n, dims, torch.bfloat16)
-    row = {"name": "mlp3", "route": "cuda",
-           "source": "panogrf_tpu_torch/csrc/fused_mlp.cu",
-           "replaces": "panogrf_tpu/ops/pallas/fused_mlp.py:146",
-           "launches": None,                # counted on the main paths
-           "max_abs_err": max(errs.values()),
-           "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
-           "bound_by": bound_by, "library_ms": None,
-           "max_err_fp32": errs[torch.float32],
-           "max_err_bf16": errs[torch.bfloat16],
-           "max_rel_err_fp32": rels[torch.float32],
-           "max_rel_err_bf16": rels[torch.bfloat16],
-           "kernel_us": k_ms * 1e3, "plain_us": p_ms * 1e3,
-           "bound_us": bound * 1e3, "bound_bytes": nbytes,
-           "bound_flops": flops,
-           "profiler_ms": k_prof_ms, "plain_profiler_ms": p_prof_ms,
-           "shape": [n, *dims], "acts": acts, "dtype": "bfloat16"}
-    emit({"phase": "kernel_time", **row})
+
+def time_kernel(name, n, dims, acts, dtype, seed) -> dict:
+    """At one shape: the kernel through its wrapper (the chosen variant),
+    the ``generic`` variant (``previous``), the plain version and a read
+    pass (``torch.sum(x, -1)``: reads x, writes one value per row), each
+    by CUDA events and by the profiler, and a copy of x by events
+    (``x.clone()``: reads and writes x once, a floor that ``torch.sum``
+    misses at narrow rows); kernel and generic in two turns
+    (kernel, generic, kernel, generic); the wrapper's host cost."""
+    args = mlp_inputs(n, dims, dtype, seed)
+    x, layers = args[0], list(zip(args[1::2], args[2::2]))
+    variant = fused_mlp.choose_variant(name, dims, dtype, x.data_ptr())
+    fns = {"kernel": lambda: call_mlp(name, args, acts),
+           "previous": lambda: fused_mlp._launch(name, x, layers, acts,
+                                                 "generic"),
+           "plain": lambda: call_mlp(name, args, acts, plain=True),
+           "read_pass": lambda: torch.sum(x, -1),
+           "copy": lambda: x.clone()}
+    runs = {k: [] for k in fns}
+    for turn in range(2):
+        for k in ("kernel", "previous"):
+            runs[k].append(event_time_ms(fns[k], 200) * 1e3)
+    # the plain version launches ~10-20 kernels a call: 50 calls stay
+    # inside the device's queue of pending launches
+    runs["plain"].append(event_time_ms(fns["plain"], 50) * 1e3)
+    for k in ("read_pass", "copy"):
+        runs[k].append(event_time_ms(fns[k], 200) * 1e3)
+    us = {k: statistics.mean(v) for k, v in runs.items()}
+    prof = {k: profiler_time_ms(fns[k]) * 1e3
+            for k in ("kernel", "previous", "plain", "read_pass")}
+    bound, bound_by, nbytes, flops = mlp_bound_ms(n, dims, dtype)
+    row = {"shape": [n, *dims], "acts": list(acts),
+           "dtype": str(dtype).replace("torch.", ""), "variant": variant,
+           "us": us["kernel"], "profiler_us": prof["kernel"],
+           "previous_us": us["previous"],
+           "previous_profiler_us": prof["previous"],
+           "plain_us": us["plain"], "plain_profiler_us": prof["plain"],
+           "read_pass_us": us["read_pass"],
+           "read_pass_profiler_us": prof["read_pass"],
+           "copy_us": us["copy"],
+           "host_us_per_call": host_us_per_call(fns["kernel"]),
+           "bound_us": bound * 1e3, "bound_by": bound_by,
+           "bound_bytes": nbytes, "bound_flops": flops, "runs_us": runs}
+    emit({"phase": "kernel_time", "kernel": name, **row})
     return row
+
+
+# the shapes each kernel is timed at: mlp2 at the serving (bfloat16) and
+# training (float32) out_geometry_fc, mlp3 at the dist-decoder head shape
+MLP3_HEAD = (65536, (32, 32, 32, 2), ("elu", "elu", "softplus"))
+TIMED = {"mlp2": [(16384, (16, 16, 1), ("elu", "relu"), BF16),
+                  (32768, (16, 16, 1), ("elu", "relu"), F32)],
+         "mlp3": [(*MLP3_HEAD, BF16), (*MLP3_HEAD, F32)]}
+REPLACES = {"mlp2": "panogrf_tpu/ops/pallas/fused_mlp.py:51",
+            "mlp3": "panogrf_tpu/ops/pallas/fused_mlp.py:146"}
+
+
+def check_and_time(name: str) -> dict:
+    """``check_kernel``, then ``time_kernel`` at each timed shape; the
+    kernel-table row of ``name``, its main numbers from the first shape.
+    Each redesigned variant must beat ``generic`` at its shapes, and
+    ``mlp3``'s bfloat16 kernel must be no slower than its plain version.
+    ``launches`` is filled in from the main paths by ``main``."""
+    errs = check_kernel(name)
+    times = [time_kernel(name, *case, seed=9 + k)
+             for k, case in enumerate(TIMED[name])]
+    for t in times:
+        if not t["us"] < t["previous_us"]:
+            raise AssertionError(f"{name} {t['variant']} {t['dtype']}: "
+                                 f"{t['us']} us, generic {t['previous_us']}")
+    if name == "mlp3" and not times[0]["us"] <= times[0]["plain_us"]:
+        raise AssertionError(f"mlp3 bf16: {times[0]['us']} us, plain "
+                             f"{times[0]['plain_us']}")
+    t = times[0]
+    return {"name": name, "route": "cuda",
+            "source": "panogrf_tpu_torch/csrc/fused_mlp.cu",
+            "replaces": REPLACES[name], "launches": None, **errs,
+            "ms": t["us"] / 1e3, "plain_ms": t["plain_us"] / 1e3,
+            "bound_ms": t["bound_us"] / 1e3, "bound_by": t["bound_by"],
+            "library_ms": None, "variant": t["variant"],
+            "previous_us": t["previous_us"], "read_pass_us": t["read_pass_us"],
+            "host_us_per_call": t["host_us_per_call"],
+            "kernel_us": t["us"], "plain_us": t["plain_us"],
+            "bound_us": t["bound_us"], "profiler_ms": t["profiler_us"] / 1e3,
+            "plain_profiler_ms": t["plain_profiler_us"] / 1e3,
+            "shape": t["shape"], "dtype": t["dtype"],
+            "times": [{k: v for k, v in r.items() if k != "runs_us"}
+                      for r in times]}
 
 
 def grad_check() -> None:
@@ -299,6 +406,14 @@ def grad_check() -> None:
                                      f" > 1e-4 x {scale}")
 
 
+def assert_specialised(what: str, mlp2_launches: int, variants: dict) -> None:
+    """Every ``mlp2`` launch of a main-path run went to the specialised
+    variant (``lanes``), none to ``generic``."""
+    if variants["mlp2_lanes"] != mlp2_launches or variants["mlp2_generic"]:
+        raise AssertionError(f"{what}: mlp2 variants {variants}, "
+                             f"{mlp2_launches} launches")
+
+
 # ---------------------------------------------------------------------------
 # the serving render
 # ---------------------------------------------------------------------------
@@ -343,12 +458,13 @@ def render_full_width() -> tuple:
                 model, ref, c2w, qdr, ref_info["depth_range"], chunk=chunk,
                 coarse_lowres=f)
         torch.cuda.reset_peak_memory_stats()
-        fused_mlp.MLP2_LAUNCHES = fused_mlp.MLP3_LAUNCHES = 0
+        fused_mlp.reset_launches()
         t0 = time.perf_counter()
         rgb = frame()                                  # warm-up, counted
         torch.cuda.synchronize()
         first_ms = (time.perf_counter() - t0) * 1e3
         count, count3 = fused_mlp.MLP2_LAUNCHES, fused_mlp.MLP3_LAUNCHES
+        variants = dict(fused_mlp.VARIANT_LAUNCHES)
         mlp3_launches += count3
         launches.setdefault(preset, count)
         first_rgb.setdefault(preset, rgb)
@@ -359,6 +475,7 @@ def render_full_width() -> tuple:
         if count != expected:
             raise AssertionError(f"{preset} chunk {chunk}: mlp2 launched "
                                  f"{count} times, expected {expected}")
+        assert_specialised(f"{preset} chunk {chunk}", count, variants)
         diff = (rgb - first_rgb[preset]).abs()
         dev_ms, host_ms = [], []
         for _ in range(3):
@@ -375,7 +492,7 @@ def render_full_width() -> tuple:
               "depth_hw": [DH, DW], "samples": [64, 64],
               "chunk": chunk, "coarse_lowres": f,
               "dtype": "bfloat16", "mlp2_launches": count,
-              "mlp3_launches": count3,
+              "mlp3_launches": count3, "variant_launches": variants,
               "ms_per_frame": statistics.median(dev_ms),
               "ms_per_frame_runs": dev_ms, "host_ms_runs": host_ms,
               "first_frame_ms": first_ms, "prepare_ref_ms": prep_ms,
@@ -456,12 +573,14 @@ def cuda_vs_cpu() -> None:
             **preset_kwargs("serving", compute_dtype="float32"),
             device=device, generator=torch.Generator().manual_seed(1))
         ref = full_render.prepare_ref_data(model, ref_info, device=device)
-        before = fused_mlp.MLP2_LAUNCHES
+        fused_mlp.reset_launches()
         rgbs[device] = full_render.render_image_device(
             model, ref, c2w, qdr, ref_info["depth_range"], chunk=256,
             coarse_lowres=2, device=device).cpu()
         if device == "cuda":
-            launches = fused_mlp.MLP2_LAUNCHES - before
+            launches = fused_mlp.MLP2_LAUNCHES
+            assert_specialised("cuda_vs_cpu", launches,
+                               fused_mlp.VARIANT_LAUNCHES)
     err = (rgbs["cuda"] - rgbs["cpu"]).abs().max().item()
     emit({"phase": "cuda_vs_cpu", "hw": [h, w], "dtype": "float32",
           "mlp2_launches_cuda": launches, "max_abs_err_rgb": err,
@@ -497,8 +616,9 @@ def train_full_width() -> tuple:
         steps.append({"step": step, "loss": metrics["loss"],
                       "terms": metrics, "t": time.perf_counter(), "ev": ev,
                       "mlp2_launches": fused_mlp.MLP2_LAUNCHES,
-                      "mlp3_launches": fused_mlp.MLP3_LAUNCHES})
-        fused_mlp.MLP2_LAUNCHES = fused_mlp.MLP3_LAUNCHES = 0
+                      "mlp3_launches": fused_mlp.MLP3_LAUNCHES,
+                      "variants": dict(fused_mlp.VARIANT_LAUNCHES)})
+        fused_mlp.reset_launches()
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -506,7 +626,7 @@ def train_full_width() -> tuple:
     trainer, stream, num_steps = train_renderer.build(
         train_renderer.parse_args(argv), on_step)
     init = {k: v.clone() for k, v in trainer.model.state_dict().items()}
-    fused_mlp.MLP2_LAUNCHES = fused_mlp.MLP3_LAUNCHES = 0
+    fused_mlp.reset_launches()
     trainer.fit(stream, num_steps, key_metric="psnr_nr")
     trainer.save("latest")
     total_s = time.perf_counter() - t0
@@ -529,6 +649,7 @@ def train_full_width() -> tuple:
           else None, "cli_seconds": total_s, "peak_mem_bytes": peak,
           "mlp2_launches_per_step": launches,
           "mlp3_launches_per_step": launches3,
+          "variant_launches_per_step": [s["variants"] for s in steps],
           "params_moved": len(init) - len(still), "params": len(init),
           "params_unchanged": still})
     if len(steps) != TRAIN_STEPS or not all(np.isfinite(losses)):
@@ -539,6 +660,9 @@ def train_full_width() -> tuple:
     if launches != [2] * TRAIN_STEPS:
         raise AssertionError(f"train: mlp2 launches per step {launches}, "
                              f"expected 2 (coarse and fine out_geometry_fc)")
+    for s in steps:
+        assert_specialised(f"train step {s['step']}", s["mlp2_launches"],
+                           s["variants"])
     profile_train_step(trainer, stream)
     return launches[-1], sum(launches3)
 
@@ -599,9 +723,12 @@ def train_cuda_vs_cpu() -> None:
         opt, schedule = trainer_mod.make_optimizer(cfg, model.parameters())
         step = trainer_mod.make_train_step(lambda b, g: model(b, g), cfg,
                                            opt, schedule)
-        before = fused_mlp.MLP2_LAUNCHES
+        fused_mlp.reset_launches()
         metrics = step(data, torch.Generator().manual_seed(5), 0)
-        launches = fused_mlp.MLP2_LAUNCHES - before
+        launches = fused_mlp.MLP2_LAUNCHES
+        if device == "cuda":
+            assert_specialised("train_cuda_vs_cpu", launches,
+                               fused_mlp.VARIANT_LAUNCHES)
         results[device] = (float(metrics["loss"]),
                            {n: p.grad.detach().cpu()
                             for n, p in model.named_parameters()}, launches)
@@ -639,15 +766,9 @@ def main() -> int:
           "cuda": torch.version.cuda, "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": smi})
 
-    _build.load_library()
-    info = _build.BUILD_INFO
-    emit({"phase": "build", "seconds": info["seconds"],
-          "sources": info["sources"],
-          "ptxas": [ln.strip() for ln in info["log"].splitlines()
-                    if "registers" in ln or "spill" in ln]})
-
-    row = check_mlp2()
-    row3 = check_mlp3()
+    build()
+    row = check_and_time("mlp2")
+    row3 = check_and_time("mlp3")
     grad_check()
     launches, mlp3_serving = render_full_width()
     row["launches"] = launches["serving"]

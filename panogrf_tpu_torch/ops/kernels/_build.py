@@ -39,9 +39,9 @@ def _nvcc() -> str:
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.panogrf_mlp2.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+    lib.panogrf_mlp2.argtypes = [p] * 6 + [i] * 8 + [p]
     lib.panogrf_mlp2.restype = i
-    lib.panogrf_mlp3.argtypes = [p] * 8 + [i] * 9 + [p]
+    lib.panogrf_mlp3.argtypes = [p] * 8 + [i] * 10 + [p]
     lib.panogrf_mlp3.restype = i
     return lib
 

@@ -9,6 +9,13 @@ version on the saved inputs, as the JAX package's custom VJPs do
 (``fused_mlp.py:115-129,200-214``).  CPU tensors take the plain versions
 ``mlp2_plain`` / ``mlp3_plain``, which autograd differentiates natively; a
 CUDA tensor the kernel does not take raises.
+
+Each kernel has variants (``csrc/fused_mlp.cu``): ``generic`` (any width
+within the limits, one thread per row) and specialised ones compiled for
+the paths' widths: ``lanes`` (several lanes per row, CUDA cores),
+``rows`` (one row per thread, CUDA cores) and ``mma`` (tensor cores).
+``choose_variant`` picks one from the widths, the dtype and x's alignment
+before the launch; a failing launch raises.
 """
 
 from __future__ import annotations
@@ -19,10 +26,42 @@ import torch
 # reset them to 0 and read them back to see that a path went through them).
 MLP2_LAUNCHES = 0
 MLP3_LAUNCHES = 0
+# the same launches by kernel and variant, e.g. VARIANT_LAUNCHES["mlp2_lanes"]
+VARIANT_LAUNCHES = {"mlp2_lanes": 0, "mlp2_generic": 0, "mlp3_mma": 0,
+                    "mlp3_rows": 0, "mlp3_generic": 0}
 
 ACTS = {"none": 0, "elu": 1, "relu": 2, "sigmoid": 3, "softplus": 4}
 MAX_DIN, MAX_HIDDEN, MAX_DOUT = 256, 64, 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_VARIANTS = {"generic": 0, "lanes": 1, "mma": 2, "rows": 3}
+# (kernel, widths) -> {dtype: variant} of each specialised instantiation in
+# csrc/fused_mlp.cu: the serving and training out_geometry_fc and the
+# dist-decoder head shape
+SPECIALISED = {
+    ("mlp2", (16, 16, 1)): {torch.float32: "lanes", torch.bfloat16: "lanes"},
+    ("mlp3", (32, 32, 32, 2)): {torch.float32: "rows", torch.bfloat16: "mma"},
+}
+
+
+def reset_launches() -> None:
+    """Set every launch count (totals and per variant) to 0."""
+    global MLP2_LAUNCHES, MLP3_LAUNCHES
+    MLP2_LAUNCHES = MLP3_LAUNCHES = 0
+    for k in VARIANT_LAUNCHES:
+        VARIANT_LAUNCHES[k] = 0
+
+
+def choose_variant(name: str, dims, dtype: torch.dtype, x_ptr: int) -> str:
+    """The variant of kernel ``name`` for layer widths ``dims`` (Din, ...,
+    Dout), ``dtype`` and x's address: the specialised one compiled for those
+    widths and that dtype when x is 16-byte aligned (the specialised
+    variants read rows with 16-byte loads; their row pitches are multiples
+    of 16 bytes), else ``generic``."""
+    picked = SPECIALISED.get((name, tuple(dims)), {}).get(dtype)
+    if picked is None or x_ptr % 16 \
+            or dims[0] * torch.finfo(dtype).bits // 8 % 16:
+        return "generic"
+    return picked
 
 
 def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
@@ -93,25 +132,31 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _launch(name: str, x, layers, acts) -> torch.Tensor:
+def _launch(name: str, x, layers, acts, variant: str | None = None
+            ) -> torch.Tensor:
     """One launch of the ``panogrf_<name>`` kernel on checked CUDA operands
-    (``layers`` [(W, b), ...], ``acts`` one activation per layer)."""
+    (``layers`` [(W, b), ...], ``acts`` one activation per layer), in
+    ``variant`` (default: ``choose_variant``'s)."""
     from panogrf_tpu_torch.ops.kernels._build import load_library
     lib = load_library()
     n, din = x.shape
     widths = [w.shape[1] for w, _ in layers]
+    if variant is None:
+        variant = choose_variant(name, (din, *widths), x.dtype, x.data_ptr())
     out = torch.empty((n, widths[-1]), dtype=x.dtype, device=x.device)
     rc = getattr(lib, f"panogrf_{name}")(
         x.data_ptr(), *[t.data_ptr() for wb in layers for t in wb],
         out.data_ptr(), n, din, *widths, *[ACTS[a] for a in acts],
-        _DTYPES[x.dtype], _stream(x))
+        _VARIANTS[variant], _DTYPES[x.dtype], _stream(x))
     if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed (CUDA error {rc})")
+        raise RuntimeError(f"{name} kernel ({variant}) launch failed "
+                           f"(CUDA error {rc})")
     global MLP2_LAUNCHES, MLP3_LAUNCHES
     if name == "mlp2":
         MLP2_LAUNCHES += 1
     else:
         MLP3_LAUNCHES += 1
+    VARIANT_LAUNCHES[f"{name}_{variant}"] += 1
     return out
 
 
