@@ -16,17 +16,27 @@ the wrapper's host cost, then drives the port's two paths at full width
   chunks of both sizes, and the CUDA path against the CPU path at 64x128;
 * training: the training CLI on the 2-view 512x1024 recipe (1 warm-up and
   5 timed Adam steps, with a profile of one more step), and one training
-  step on CUDA against the same step on the CPU at 64x128.
+  step on CUDA against the same step on the CPU at 64x128;
+* the depth stack: UniFuse + the 360-degree MVS net at full width on the
+  2 reference views of a 512x1024 scene (ms per scene, peak memory,
+  operations, a profile), and the small stack on CUDA against the CPU;
+* the composed pipeline: the render CLI at 512x1024 from the stack's
+  depth, an eval frame with its metrics and a 4-pose path at frame
+  batches of 2 and 1, and a 3-pose video group against its frames on the
+  card at 64x128.
 
 Each path checks that it went through its kernels.  Each phase prints one
 JSON line; any failure raises, so the process exits non-zero.  The last
 three lines are the card's name and power limit, the kernel table and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 rest of the repository, it fails before printing a result.
+``--phases`` runs a subset of the phase groups (then it prints no
+result and exits 2).
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import re
 import statistics
@@ -40,6 +50,7 @@ import torch
 from panogrf_tpu_torch.data import imgs_info
 from panogrf_tpu_torch.data.synthetic import (SphereScene,
                                               make_three_view_sample)
+from panogrf_tpu_torch.models import depth_stack
 from panogrf_tpu_torch.nn.blocks import resize_linear
 from panogrf_tpu_torch.ops.kernels import _build, fused_mlp
 from panogrf_tpu_torch.renderer import full_render
@@ -47,6 +58,7 @@ from panogrf_tpu_torch.renderer.presets import (PRESET_CHUNK,
                                                 PRESET_COARSE_LOWRES,
                                                 preset_kwargs)
 from panogrf_tpu_torch.renderer.renderer import NeuralRayGenRenderer
+from panogrf_tpu_torch.tools import render as render_tool
 from panogrf_tpu_torch.tools import train_renderer
 from panogrf_tpu_torch.train import trainer as trainer_mod
 
@@ -754,7 +766,225 @@ def train_cuda_vs_cpu() -> None:
                              f"launches {launches}, over limit {bad}")
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# the depth stack and the composed serving pipeline
+# ---------------------------------------------------------------------------
+
+def timed_ms(fn, runs: int = 3) -> tuple:
+    """(median, runs) of CUDA-event milliseconds of ``fn`` after one
+    warm-up call."""
+    fn()
+    times = []
+    for _ in range(runs):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times), times
+
+
+def depth_stack_full_width() -> None:
+    """The frozen stack at its defaults (UniFuse at 512x1024, the MVS net
+    at 256x512 with 64 hypotheses and a 3D UNet of base 32; random weights
+    from seed 0) on the 2 reference views of a 512x1024 procedural scene:
+    ms per scene (median of 3 after a warm-up), the mono net's share, peak
+    memory, the convolutions' operations (FlopCounterMode), a profile of
+    one call; depth of the expected shapes, finite and non-negative."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.flop_counter import FlopCounterMode
+    sample = make_three_view_sample(SphereScene.random(7, device="cuda"), H,
+                                    W, 0.5, seed=7)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    stack = depth_stack.init_depth_stack(0, device="cuda")
+
+    def run():
+        return depth_stack.stack_depth_for_sample(
+            stack, sample, imgs_info.REF_IDS, imgs_info.SRC_IDS)
+    out = run()
+    ms, runs = timed_ms(run)
+    peak = torch.cuda.max_memory_allocated() - base
+    ref = sample["rgb_panos"][list(imgs_info.REF_IDS)]
+    with torch.inference_mode():
+        mono_ms, mono_runs = timed_ms(lambda: depth_stack.run_mono(
+            stack.mono_model, ref, stack.mono_hw))
+    with FlopCounterMode(display=False) as counter:
+        run()
+    flops = counter.get_total_flops()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    rows = _cuda_kernel_rows(prof)
+    rows.sort(key=lambda r: -r[1])
+    depth, mono = out["mvs_depth"], out["mono_depth"]
+    emit({"phase": "depth_stack", "mono_hw": list(stack.mono_hw),
+          "depth_hw": list(stack.depth_hw), "views": 2,
+          "hypotheses": stack.mvs_model.num_hypotheses, "dtype": "float32",
+          "tf32": False, "ms_per_scene": ms, "ms_per_scene_runs": runs,
+          "mono_ms": mono_ms, "mono_ms_runs": mono_runs,
+          "mvs_ms": ms - mono_ms, "peak_mem_bytes": peak, "flops": flops,
+          "tflops_per_s": flops / ms / 1e9,
+          "kernels": sum(r[2] for r in rows),
+          "device_busy_us": sum(r[1] for r in rows),
+          "top_kernels": [{"kernel": k[:80], "us": t, "count": c}
+                          for k, t, c in rows[:10]],
+          "mvs_depth_shape": list(depth.shape),
+          "mono_depth_shape": list(mono.shape),
+          "mvs_depth_mean": depth.mean().item(),
+          "mvs_depth_max": depth.max().item(),
+          "mono_depth_mean": mono.mean().item()})
+    if tuple(depth.shape) != (RFN, DH, DW, 1) or \
+            tuple(mono.shape) != (RFN, H, W, 1):
+        raise AssertionError(f"depth stack shapes {tuple(depth.shape)}, "
+                             f"{tuple(mono.shape)}")
+    for t in (depth, mono):
+        if not torch.isfinite(t).all() or t.min() < 0:
+            raise AssertionError("depth stack: non-finite or negative depth")
+
+
+def small_stack(device: str):
+    """The stack at the tests' small shapes (mono 64x128, MVS 32x64, 8
+    hypotheses, 3D UNet base 8), seeded; the depth head's last bias is
+    positive so the random net's depth is not near 0."""
+    stack = depth_stack.init_depth_stack(
+        3, mono_hw=(64, 128), depth_hw=(32, 64),
+        mvs_kwargs={"num_hypotheses": 8, "magnet_num_samples": 3,
+                    "cnn3d_base": 8}, device=device)
+    with torch.no_grad():
+        stack.mvs_model.decoders2[2].conv2.bias.fill_(3.0)
+    return stack
+
+
+def depth_stack_cuda_vs_cpu() -> None:
+    """The small stack on CUDA (cuDNN, TF32 off) against the CPU, float32:
+    each depth within 1e-3 of its scale.  (A floor of a sweep coordinate
+    near an integer may fall on either side between the devices and move
+    one sample of the cost volume, hence not 1e-5.)"""
+    sample = make_three_view_sample(SphereScene.random(8), 32, 64, 0.5,
+                                    seed=8)
+    outs = {}
+    for device in ("cuda", "cpu"):
+        s = {k: v.to(device) for k, v in sample.items()}
+        outs[device] = {k: v.cpu() for k, v in
+                        depth_stack.stack_depth_for_sample(
+                            small_stack(device), s,
+                            imgs_info.REF_IDS).items()}
+    errs = {k: (outs["cuda"][k] - outs["cpu"][k]).abs().max().item()
+            for k in outs["cpu"]}
+    scales = {k: v.abs().max().item() for k, v in outs["cpu"].items()}
+    emit({"phase": "depth_stack_cuda_vs_cpu", "mono_hw": [64, 128],
+          "depth_hw": [32, 64], "dtype": "float32", "max_abs_err": errs,
+          "mean_abs_err": {k: (outs["cuda"][k] - outs["cpu"][k]).abs()
+                           .mean().item() for k in errs},
+          "scale": scales})
+    bad = [k for k in errs if not errs[k] <= 1e-3 * scales[k]]
+    if bad:
+        raise AssertionError(f"depth stack cuda vs cpu: {bad} {errs}")
+
+
+RENDER_OUT = "data/chip_smoke_render"
+
+
+def render_cli() -> dict:
+    """The render CLI (``tools.render.main``) at 512x1024 under the
+    serving preset at 4096-ray chunks, reference depth from the depth
+    stack (random weights): one eval frame with its metrics, then a path
+    of 4 poses at a frame batch of 2 and of 1.  Asserts the mlp2 launches:
+    an eval frame 160, a 2-pose group as many as one frame, all ``lanes``;
+    mlp3 none.  Returns the launches per path."""
+    chunk = 4096
+    per_frame = H * W // chunk + (H // 2) * (W // 2) // chunk
+    argv = ["--height", str(H), "--width", str(W), "--depth-height", str(DH),
+            "--depth-width", str(DW), "--depth-stack", "--preset", "serving",
+            "--chunk", str(chunk), "--num", "1", "--no-skip", "--out",
+            RENDER_OUT]
+    runs = {"eval": ([], 1), "inter_b2": (["--pose-type", "inter",
+                                           "--inter-num", "4",
+                                           "--frame-batch", "2"], 2),
+            "inter_b1": (["--pose-type", "inter", "--inter-num", "4",
+                          "--frame-batch", "1"], 4)}
+    result = {}
+    for name, (extra, passes) in runs.items():
+        fused_mlp.reset_launches()
+        t0 = time.perf_counter()
+        summary = render_tool.main(argv + extra)
+        seconds = time.perf_counter() - t0
+        count, count3 = fused_mlp.MLP2_LAUNCHES, fused_mlp.MLP3_LAUNCHES
+        variants = dict(fused_mlp.VARIANT_LAUNCHES)
+        row = {"phase": "render_cli", "run": name, "hw": [H, W],
+               "preset": "serving", "chunk": chunk,
+               "mlp2_launches": count, "mlp2_launches_per_group":
+                   count / passes, "mlp3_launches": count3,
+               "variant_launches": variants, "cli_seconds": seconds,
+               "stack_seconds": summary["stack_seconds"]}
+        if name == "eval":
+            row.update(summary["mean"])
+            ok = all(np.isfinite(v) for v in summary["mean"].values())
+        else:
+            row.update(summary["videos"][0])
+            ok = summary["videos"][0]["frames"] == 4
+        emit(row)
+        if not ok:
+            raise AssertionError(f"render_cli {name}: {summary}")
+        if count != passes * per_frame or count3:
+            raise AssertionError(f"render_cli {name}: mlp2 launched {count}"
+                                 f" times, expected {passes} x {per_frame};"
+                                 f" mlp3 {count3}")
+        assert_specialised(f"render_cli {name}", count, variants)
+        result[name] = count
+    return result
+
+
+def video_cuda() -> None:
+    """render_video_device at B = 3 against render_image_device for each
+    pose, on the card at 64x128 (serving flags, float32, coarse pass at
+    half resolution): rgb within 2e-3 (the CUDA-against-CPU limit: the
+    batched products may round differently); the 3-pose group launches
+    mlp2 as often as one frame."""
+    h, w, dh, dw = 64, 128, 32, 64
+    ref_info, c2w, qdr = bench_inputs(h, w, dh, dw)
+    model = NeuralRayGenRenderer(
+        height=h, width=w, depth_hw=(dh, dw),
+        **preset_kwargs("serving", compute_dtype="float32"), device="cuda",
+        generator=torch.Generator().manual_seed(2))
+    ref = full_render.prepare_ref_data(model, ref_info)
+    c2ws = np.stack([c2w + np.asarray([[0, 0, 0, dx]] * 3)
+                     for dx in (0.0, 0.1, 0.2)])
+    args = (qdr, ref_info["depth_range"])
+    fused_mlp.reset_launches()
+    video = full_render.render_video_device(model, ref, c2ws, *args,
+                                            chunk=256, coarse_lowres=2)
+    launches = fused_mlp.MLP2_LAUNCHES
+    fused_mlp.reset_launches()
+    frames = [full_render.render_image_device(model, ref, c, *args,
+                                              chunk=256, coarse_lowres=2)
+              for c in c2ws]
+    frame_launches = fused_mlp.MLP2_LAUNCHES / len(c2ws)
+    errs = [(video[b] - frames[b]).abs().max().item() for b in range(3)]
+    emit({"phase": "video_cuda", "hw": [h, w], "dtype": "float32",
+          "frames": 3, "max_abs_err_rgb": errs,
+          "mlp2_launches_group": launches,
+          "mlp2_launches_per_frame": frame_launches})
+    if not max(errs) <= 2e-3 or launches != frame_launches:
+        raise AssertionError(f"video_cuda: errs {errs}, launches {launches}"
+                             f" vs {frame_launches} per frame")
+
+
+PHASES = ("kernels", "serving", "training", "depth_stack", "render_cli",
+          "video")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="Smoke run of the port on "
+                                             "one NVIDIA GPU")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma list of the groups to run, of "
+                         f"{', '.join(PHASES)} (default: all; the result "
+                         "lines need all)")
+    phases = set(ap.parse_args(argv).phases.split(","))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -767,21 +997,42 @@ def main() -> int:
           "count": torch.cuda.device_count(), "nvidia_smi": smi})
 
     build()
-    row = check_and_time("mlp2")
-    row3 = check_and_time("mlp3")
-    grad_check()
-    launches, mlp3_serving = render_full_width()
-    row["launches"] = launches["serving"]
-    row["launches_turbo"] = launches["turbo"]
-    cuda_vs_cpu()
-    row["launches_train_per_step"], mlp3_train = train_full_width()
+    row, row3 = {}, {"launches": 0}
+    if "kernels" in phases:
+        row = check_and_time("mlp2")
+        row3 = check_and_time("mlp3")
+        row3["launches"] = 0
+        grad_check()
+    if "serving" in phases:
+        launches, mlp3_serving = render_full_width()
+        row["launches"] = launches["serving"]
+        row["launches_turbo"] = launches["turbo"]
+        row3["launches"] += mlp3_serving
+        cuda_vs_cpu()
+    if "training" in phases:
+        row["launches_train_per_step"], mlp3_train = train_full_width()
+        row3["launches"] += mlp3_train
+        train_cuda_vs_cpu()
+    if "depth_stack" in phases:
+        depth_stack_full_width()
+        depth_stack_cuda_vs_cpu()
+    if "render_cli" in phases:
+        cli = render_cli()
+        row["launches_render_cli_eval"] = cli["eval"]
+        row["launches_render_cli_path_b2"] = cli["inter_b2"]
+        row["launches_render_cli_path_b1"] = cli["inter_b1"]
+    if "video" in phases:
+        video_cuda()
     # no path of either package calls mlp3: the main paths launch it 0 times
-    row3["launches"] = mlp3_serving + mlp3_train
+    # (render_cli asserts its own 0)
     if row3["launches"] != 0:
         raise AssertionError(f"mlp3 launched {row3['launches']} times on the "
                              f"main paths, which have no caller of it")
-    train_cuda_vs_cpu()
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+    if phases != set(PHASES):
+        print("chip_smoke: a subset of the phases ran; no result",
+              file=sys.stderr)
+        return 2
     print(smi)
     emit({"kernels": [row, row3]})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,8 +1,10 @@
 """Spherical geometry for equirectangular (ERP) panoramas.
 
 Port of ``panogrf_tpu/core/sphere.py`` for the ``m3d`` convention (the one
-the renderer uses) in ``corner`` pixel mode: pixel x in [0, W-1] maps onto
-the full longitude range.  Coordinates live in the trailing axis.
+the renderer and the depth stack use).  ``corner`` pixel mode maps pixel x
+in [0, W-1] onto the full longitude range (the renderer's grid);
+``center`` mode puts pixel x at fraction (x + 0.5) / W (the cost volume's
+pixel-centre grid).  Coordinates live in the trailing axis.
 """
 
 from __future__ import annotations
@@ -48,10 +50,17 @@ class SphereConvention:
     _sph_to_pix: Callable
 
     def equi_to_spherical(self, xy: torch.Tensor, height: int, width: int,
-                          radius: float = 1.0) -> torch.Tensor:
+                          radius: float = 1.0,
+                          mode: str = "corner") -> torch.Tensor:
         """Pixel coords (..., 2) -> spherical (..., 3)."""
-        fx = torch.clamp(xy[..., 0], 0.0, width - 1.0) / (width - 1.0)
-        fy = torch.clamp(xy[..., 1], 0.0, height - 1.0) / (height - 1.0)
+        if mode == "corner":
+            fx = torch.clamp(xy[..., 0], 0.0, width - 1.0) / (width - 1.0)
+            fy = torch.clamp(xy[..., 1], 0.0, height - 1.0) / (height - 1.0)
+        elif mode == "center":
+            fx = (xy[..., 0] + 0.5) / width
+            fy = (xy[..., 1] + 0.5) / height
+        else:
+            raise ValueError(f"unknown pixel mode {mode!r}")
         theta, phi = self._pix_to_sph(fx, fy)
         return torch.stack([theta, phi, torch.full_like(theta, radius)], -1)
 
@@ -67,9 +76,13 @@ class SphereConvention:
         return torch.stack([theta, phi, r], -1)
 
     def spherical_to_equi(self, sph: torch.Tensor, height: int,
-                          width: int) -> torch.Tensor:
+                          width: int, mode: str = "corner") -> torch.Tensor:
         fx, fy = self._sph_to_pix(sph[..., 0], sph[..., 1])
-        return torch.stack([fx * (width - 1.0), fy * (height - 1.0)], -1)
+        if mode == "corner":
+            return torch.stack([fx * (width - 1.0), fy * (height - 1.0)], -1)
+        if mode == "center":
+            return torch.stack([fx * width - 0.5, fy * height - 0.5], -1)
+        raise ValueError(f"unknown pixel mode {mode!r}")
 
     def pixel_grid(self, height: int, width: int,
                    device: torch.device | str = "cpu") -> torch.Tensor:
@@ -80,18 +93,20 @@ class SphereConvention:
         return torch.stack([xx, yy], -1)
 
     def ray_directions(self, height: int, width: int,
-                       device: torch.device | str = "cpu") -> torch.Tensor:
+                       device: torch.device | str = "cpu",
+                       mode: str = "corner") -> torch.Tensor:
         """Unit ray directions per ERP pixel, (H, W, 3)."""
         sph = self.equi_to_spherical(self.pixel_grid(height, width, device),
-                                     height, width)
+                                     height, width, mode=mode)
         dirs = self.spherical_to_cartesian(sph)
         return dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
 
     def project_to_pixels(self, pts_cam: torch.Tensor, height: int,
-                          width: int) -> tuple:
+                          width: int, mode: str = "corner") -> tuple:
         """Camera-frame points (..., 3) -> (pixel xy (..., 2), distance)."""
         sph = self.cartesian_to_spherical(pts_cam)
-        return self.spherical_to_equi(sph, height, width), sph[..., 2]
+        return (self.spherical_to_equi(sph, height, width, mode),
+                sph[..., 2])
 
 
 def _m3d_pix_to_sph(fx, fy):

@@ -1,11 +1,14 @@
-"""ERP-aware conv blocks of the renderer's encoders.
+"""ERP-aware conv blocks of the renderer's encoders and the depth stack.
 
-Port of the renderer half of ``panogrf_tpu/nn/blocks.py``.  Modules run in
-NCHW inside and are named after the reference PyTorch layout that
-``panogrf_tpu/utils/torch_convert.convert_renderer`` reads: a wrap-padded
-3x3 conv is ``Sequential(WrapPad, Conv2d)`` (keys ``<name>.1.weight``).
-``resize_linear``, ``wrap_pad_2d`` and ``ResUNetLight`` take and return
-channel-last tensors, as their JAX counterparts do.
+Port of ``panogrf_tpu/nn/blocks.py`` (without ``CostRegNet``).  Modules
+run in NCHW (NCDHW in 3D) inside and are named after the reference
+PyTorch layout that ``panogrf_tpu/utils/torch_convert`` reads: in the
+renderer a wrap-padded 3x3 conv is ``Sequential(WrapPad, Conv2d)`` (keys
+``<name>.1.weight``); in the depth stack it is a conv that pads itself
+(``PadConv2d``, ``WrapConv3D``: keys ``<name>.weight``).
+``resize_linear``, ``wrap_pad_2d``, ``upsample2x_nearest`` and
+``ResUNetLight`` take and return channel-last tensors, as their JAX
+counterparts do.
 """
 
 from __future__ import annotations
@@ -69,6 +72,21 @@ def upsample2x_bilinear(x: torch.Tensor, align_corners: bool = True,
     """2x bilinear upsample of the two spatial ``axes`` (NHWC default)."""
     return resize_linear(x, [2 * x.shape[a] for a in axes], axes=axes,
                          align_corners=align_corners)
+
+
+@torch.no_grad()
+def init_parameters_(module: nn.Module, generator: torch.Generator) -> None:
+    """Seeded initialisation: LeCun-normal weights, unit norm scales and
+    zero biases (the JAX package's initialisers, untruncated)."""
+    for name, p in module.named_parameters():
+        if p.dim() >= 2:
+            fan_in = p[0].numel()
+            p.copy_(torch.randn(p.shape, generator=generator)
+                    / fan_in ** 0.5)
+        elif name.endswith("weight"):
+            p.fill_(1.0)
+        else:
+            p.zero_()
 
 
 class WrapPad(nn.Module):
@@ -201,3 +219,147 @@ class ResUNetLight(nn.Module):
         h = self.iconv3(torch.cat([x2, self.upconv3(x3)], 1))
         h = self.iconv2(torch.cat([x1, self.upconv2(h)], 1))
         return self.out_conv(h).permute(0, 2, 3, 1)
+
+
+# ---------------------------------------------------------------------------
+# depth-stack blocks (UniFuse / MVS)
+# ---------------------------------------------------------------------------
+
+def wrap_pad_3d(x: torch.Tensor, pad_d: int, pad_h: int,
+                pad_w: int) -> torch.Tensor:
+    """Zero-pad depth and latitude, circular-pad longitude; NCDHW."""
+    if pad_d or pad_h:
+        x = F.pad(x, (0, 0, pad_h, pad_h, pad_d, pad_d))
+    if pad_w:
+        x = torch.cat([x[..., -pad_w:], x, x[..., :pad_w]], dim=-1)
+    return x
+
+
+def upsample2x_nearest(x: torch.Tensor, axes: Sequence[int] = (1, 2)
+                       ) -> torch.Tensor:
+    """Nearest 2x upsample of the spatial ``axes`` (NHWC default)."""
+    for axis in axes:
+        x = torch.repeat_interleave(x, 2, dim=axis)
+    return x
+
+
+class PadConv2d(nn.Conv2d):
+    """VALID conv after an explicit (k-1)//2 pad: wrap (circular W, zero
+    H) or zero; NCHW.  Its parameters are the plain ``weight``/``bias``
+    of the reference's converted convs."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int = 3,
+                 stride: int = 1, bias: bool = True, wrap: bool = True):
+        super().__init__(cin, cout, kernel_size, stride, bias=bias)
+        self.pad = (kernel_size - 1) // 2
+        self.wrap = wrap
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        p = self.pad
+        if p:
+            x = _wrap_pad_nchw(x, p, p) if self.wrap else F.pad(x, (p,) * 4)
+        return super().forward(x)
+
+
+class WrapConv3D(nn.Conv3d):
+    """3D conv over (D, H, W) with zero padding in D, H and circular
+    padding in W (or zero everywhere without ``wrap``); NCDHW."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int = 3,
+                 stride: int = 1, bias: bool = True, wrap: bool = True):
+        super().__init__(cin, cout, kernel_size, stride, bias=bias)
+        self.pad = (kernel_size - 1) // 2
+        self.wrap = wrap
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        p = self.pad
+        if p:
+            x = wrap_pad_3d(x, p, p, p) if self.wrap else F.pad(x, (p,) * 6)
+        return super().forward(x)
+
+
+class ConvBlock2(nn.Module):
+    """[2x bilinear upscale (align_corners=False)] -> conv-lrelu-conv-lrelu
+    [-> 2x2 average pool]; NCHW.  Returns (pooled, unpooled) like the
+    reference."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int = 3,
+                 wrap: bool = True, use_activation: bool = True,
+                 upscale: bool = False, pool: bool = True):
+        super().__init__()
+        self.conv1 = PadConv2d(cin, cout, kernel_size, wrap=wrap)
+        self.conv2 = PadConv2d(cout, cout, kernel_size, wrap=wrap)
+        self.use_activation = use_activation
+        self.upscale = upscale
+        self.pool = pool
+
+    def forward(self, x: torch.Tensor) -> tuple:
+        if self.upscale:
+            x = upsample2x_bilinear(x, False, axes=(2, 3))
+        act = (lambda t: F.leaky_relu(t, 0.01)) if self.use_activation \
+            else (lambda t: t)
+        h = act(self.conv2(act(self.conv1(x))))
+        return (F.avg_pool2d(h, 2) if self.pool else h), h
+
+
+class Conv3DBlock(nn.Module):
+    """conv3d-lrelu-conv3d-lrelu [-> 2x2x2 average pool]; NCDHW."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int = 3,
+                 wrap: bool = True, pool: bool = True):
+        super().__init__()
+        self.conv1 = WrapConv3D(cin, cout, kernel_size, wrap=wrap)
+        self.conv2 = WrapConv3D(cout, cout, kernel_size, wrap=wrap)
+        self.pool = pool
+
+    def forward(self, x: torch.Tensor) -> tuple:
+        h = F.leaky_relu(self.conv1(x), 0.01)
+        h = F.leaky_relu(self.conv2(h), 0.01)
+        return (F.avg_pool3d(h, 2) if self.pool else h), h
+
+
+class UNet3D(nn.Module):
+    """3D UNet cost regularizer (the reference's ``UNet2`` over
+    ``Conv3DBlockv2``): ``num_layers`` pooled encoder levels with channels
+    base*2^(i+1), an unpooled bottleneck, trilinear upsampling and skip
+    concatenation; NCDHW.
+
+    As in the reference, the first decoder takes no skip and the deepest
+    encoder skip is never read.  ``decoders[j]`` is the decoder that
+    returns to level j, so the forward runs ``decoders[n-1]`` first and
+    ``decoders[0]`` (to ``out_features``) last.
+    """
+
+    def __init__(self, in_features: int, base_features: int = 32,
+                 num_layers: int = 3, out_features: int = 1,
+                 wrap: bool = True):
+        super().__init__()
+        n, b = num_layers, base_features
+        enc = [b * 2 ** (i + 1) for i in range(n + 1)]
+        self.encoders = nn.ModuleList(
+            Conv3DBlock(cin, cout, wrap=wrap, pool=i < n)
+            for i, (cin, cout) in enumerate(zip([in_features] + enc, enc)))
+        dec = []
+        for j in range(n):
+            cout = b * 2 ** j if j > 0 else out_features
+            cin = enc[n] if j == n - 1 else b * 2 ** (j + 1) + enc[j]
+            dec.append(Conv3DBlock(cin, cout, wrap=wrap, pool=False))
+        self.decoders = nn.ModuleList(dec)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        skips = []
+        h = x
+        for block in self.encoders[:-1]:
+            h, unpooled = block(h)
+            skips.append(unpooled)
+        _, h = self.encoders[-1](h)
+
+        def up(t, target):
+            return resize_linear(t, target.shape[2:], axes=(2, 3, 4))
+
+        n = len(self.decoders)
+        _, h = self.decoders[n - 1](up(h, skips[-1]))
+        for i in range(n - 2, -1, -1):
+            h = torch.cat([up(h, skips[i]), skips[i]], 1)
+            _, h = self.decoders[i](h)
+        return h

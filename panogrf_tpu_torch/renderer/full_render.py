@@ -1,10 +1,13 @@
-"""Full-image rendering: per-scene preparation and the chunked frame loop.
+"""Full-image rendering: per-scene preparation, frames and pose paths.
 
-Port of ``prepare_ref_data`` and ``render_image_device`` from
-``panogrf_tpu/renderer/full_render.py``.  The JAX package maps its chunks
-with ``lax.map`` inside one compiled program; here the chunk loop is a
-Python loop of eager passes.  Both entry points run on CUDA unless the
-caller passes ``device="cpu"``.
+Port of ``panogrf_tpu/renderer/full_render.py``: ``prepare_ref_data``,
+``render_image_device``, ``render_video_device`` and ``render_image``.
+The JAX package maps its chunks with ``lax.map`` inside one compiled
+program; here the chunk loop is a Python loop of eager passes.  The video
+path renders B poses at once: they ride the query axis of each chunk pass
+(the JAX package vmaps the chunk body over them), so the merged maps are
+shared and each pass launches its kernels once for the B frames.  Every
+entry point runs on CUDA unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -46,7 +49,54 @@ def prepare_ref_data(model: NeuralRayGenRenderer, ref_info: dict,
 
 def _pixel_coords(xs, ys, n_chunks: int, chunk: int) -> torch.Tensor:
     yy, xx = torch.meshgrid(ys, xs, indexing="ij")
-    return torch.stack([xx, yy], -1).reshape(n_chunks, 1, chunk, 2).float()
+    return torch.stack([xx, yy], -1).reshape(n_chunks, chunk, 2).float()
+
+
+def _render_poses(model: NeuralRayGenRenderer, ref_data: dict, c2w, qn: int,
+                  que_depth_range, ref_depth_range, chunk: int,
+                  coarse_lowres: int, coarse_chunk: int,
+                  dev: torch.device) -> torch.Tensor:
+    """The chunk loop over ``qn`` poses at once: ``c2w`` (3, 4) for one
+    frame or (qn, 3, 4); returns rgb (qn, H, W, 3) in [0, 1]."""
+    h, w = model.height, model.width
+    n = h * w
+    if n % chunk:
+        raise ValueError(f"chunk {chunk} does not divide {h}x{w} rays")
+    nc = n // chunk
+    coords = _pixel_coords(torch.arange(w, device=dev),
+                           torch.arange(h, device=dev), nc, chunk)
+    rgb = torch.empty(qn, nc, chunk, 3, device=dev)
+    args = (c2w, _tensor(que_depth_range, dev), _tensor(ref_depth_range, dev))
+
+    if coarse_lowres == 1:
+        for i in range(nc):
+            rgb[:, i] = model.render_rays(
+                ref_data, coords[i].expand(qn, chunk, 2),
+                *args)["pixel_colors_nr_fine"]
+        return torch.clamp(rgb.reshape(qn, h, w, 3), 0.0, 1.0)
+
+    f = coarse_lowres
+    if h % f or w % f:
+        raise ValueError(f"coarse_lowres {f} does not divide {h}x{w}")
+    lh, lw = h // f, w // f
+    nlr = lh * lw
+    lchunk = min(coarse_chunk or chunk, nlr)
+    if nlr % lchunk:
+        raise ValueError(f"coarse chunk {lchunk} does not divide {nlr}")
+    # the low-res rays sample the centre pixel of each f x f cell
+    lcoords = _pixel_coords(torch.arange(lw, device=dev) * f + f // 2,
+                            torch.arange(lh, device=dev) * f + f // 2,
+                            nlr // lchunk, lchunk)
+    hit = torch.cat([model.coarse_hit_probs(
+        ref_data, c.expand(qn, lchunk, 2), *args) for c in lcoords], 1)
+    dn = hit.shape[-1]
+    hit_full = resize_linear(hit.reshape(qn, lh, lw, dn), (h, w),
+                             axes=(1, 2)).reshape(qn, nc, chunk, dn)
+    for i in range(nc):
+        rgb[:, i] = model.render_fine_from_hit(
+            ref_data, coords[i].expand(qn, chunk, 2), hit_full[:, i],
+            *args)["pixel_colors_nr_fine"]
+    return torch.clamp(rgb.reshape(qn, h, w, 3), 0.0, 1.0)
 
 
 @torch.inference_mode()
@@ -66,41 +116,66 @@ def render_image_device(model: NeuralRayGenRenderer, ref_data: dict,
     :return: rgb (H, W, 3) in [0, 1].
     """
     dev = _on(model, device)
-    que_c2w = _tensor(que_c2w, dev)
-    que_depth_range = _tensor(que_depth_range, dev)
-    ref_depth_range = _tensor(ref_depth_range, dev)
+    return _render_poses(model, ref_data, _tensor(que_c2w, dev), 1,
+                         que_depth_range, ref_depth_range, chunk,
+                         coarse_lowres, coarse_chunk, dev)[0]
+
+
+@torch.inference_mode()
+def render_video_device(model: NeuralRayGenRenderer, ref_data: dict,
+                        c2ws, que_depth_range, ref_depth_range,
+                        chunk: int = 256, coarse_lowres: int = 1,
+                        coarse_chunk: int = 0,
+                        device: str | torch.device = "cuda") -> torch.Tensor:
+    """Render B frames of a pose path together: each chunk pass covers the
+    chunk's rays of all B poses, so the maps are read by one pass and each
+    kernel launches once per pass for the B frames.  Each frame equals
+    ``render_image_device``'s at the same flags, up to float rounding.
+
+    :param c2ws: (B, 3, 4) camera-to-world poses.
+    :return: rgb (B, H, W, 3) in [0, 1].
+    """
+    dev = _on(model, device)
+    c2ws = _tensor(c2ws, dev)
+    if c2ws.dim() != 3 or tuple(c2ws.shape[1:]) != (3, 4):
+        raise ValueError(f"c2ws must be (B, 3, 4), got {tuple(c2ws.shape)}")
+    return _render_poses(model, ref_data, c2ws, c2ws.shape[0],
+                         que_depth_range, ref_depth_range, chunk,
+                         coarse_lowres, coarse_chunk, dev)
+
+
+@torch.inference_mode()
+def render_image(model: NeuralRayGenRenderer, ref_info: dict, que_c2w,
+                 que_depth_range, chunk: int = 8192,
+                 ref_data: dict | None = None,
+                 device: str | torch.device = "cuda") -> dict:
+    """Render a full ERP image through the full coarse + fine pass, the
+    last chunk padded with pixel (0, 0) rays.
+
+    :param ref_info: as ``prepare_ref_data`` takes it, with
+        ``depth_range`` (rfn, 2).
+    :return: ``rgb`` (H, W, 3) in [0, 1] and ``depth`` (H, W), of the
+        fine pass with hierarchical sampling.
+    """
+    dev = _on(model, device)
+    if ref_data is None:
+        ref_data = prepare_ref_data(model, ref_info, device=dev)
     h, w = model.height, model.width
     n = h * w
-    if n % chunk:
-        raise ValueError(f"chunk {chunk} does not divide {h}x{w} rays")
-    coords = _pixel_coords(torch.arange(w, device=dev),
-                           torch.arange(h, device=dev), n // chunk, chunk)
-    rgb = torch.empty(n // chunk, chunk, 3, device=dev)
-    args = (que_c2w, que_depth_range, ref_depth_range)
-
-    if coarse_lowres == 1:
-        for i in range(n // chunk):
-            rgb[i] = model.render_rays(ref_data, coords[i],
-                                       *args)["pixel_colors_nr_fine"][0]
-        return torch.clamp(rgb.reshape(h, w, 3), 0.0, 1.0)
-
-    f = coarse_lowres
-    if h % f or w % f:
-        raise ValueError(f"coarse_lowres {f} does not divide {h}x{w}")
-    lh, lw = h // f, w // f
-    nlr = lh * lw
-    lchunk = min(coarse_chunk or chunk, nlr)
-    if nlr % lchunk:
-        raise ValueError(f"coarse chunk {lchunk} does not divide {nlr}")
-    lcoords = _pixel_coords(torch.arange(lw, device=dev) * f + f // 2,
-                            torch.arange(lh, device=dev) * f + f // 2,
-                            nlr // lchunk, lchunk)
-    hit = torch.cat([model.coarse_hit_probs(ref_data, c, *args)[0]
-                     for c in lcoords])                     # (nlr, dn)
-    dn = hit.shape[-1]
-    hit_full = resize_linear(hit.reshape(lh, lw, dn), (h, w), axes=(0, 1))
-    hit_full = hit_full.reshape(n // chunk, 1, chunk, dn)
-    for i in range(n // chunk):
-        rgb[i] = model.render_fine_from_hit(
-            ref_data, coords[i], hit_full[i], *args)["pixel_colors_nr_fine"][0]
-    return torch.clamp(rgb.reshape(h, w, 3), 0.0, 1.0)
+    pad = (-n) % chunk
+    coords = torch.cat([_pixel_coords(torch.arange(w, device=dev),
+                                      torch.arange(h, device=dev), 1, n)[0],
+                        torch.zeros(pad, 2, device=dev)])
+    args = (_tensor(que_c2w, dev), _tensor(que_depth_range, dev),
+            _tensor(ref_info["depth_range"], dev))
+    sfx = "_fine" if model.use_hierarchical_sampling else ""
+    rgb, depth = [], []
+    for i in range(coords.shape[0] // chunk):
+        out = model.render_rays(ref_data,
+                                coords[i * chunk:(i + 1) * chunk][None],
+                                *args)
+        rgb.append(out["pixel_colors_nr" + sfx][0])
+        depth.append(out["render_depth" + sfx][0])
+    return {"rgb": torch.clamp(torch.cat(rgb)[:n].reshape(h, w, 3), 0.0,
+                               1.0),
+            "depth": torch.cat(depth)[:n].reshape(h, w)}

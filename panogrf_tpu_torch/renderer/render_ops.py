@@ -121,14 +121,20 @@ def depth2points_spherical(coords: torch.Tensor, que_depth: torch.Tensor,
                            directions: torch.Tensor) -> tuple:
     """Sample points along spherical rays.
 
-    :param coords: (qn, rn, 2); que_depth (qn, rn, dn); c2w (3, 4);
-        directions (H, W, 3) unit camera-frame rays.
+    :param coords: (qn, rn, 2); que_depth (qn, rn, dn); c2w (3, 4), one
+        pose for every query, or (qn, 3, 4), a pose per query (the video
+        path's frame batch); directions (H, W, 3) unit camera-frame rays.
     :return: (que_pts (qn, rn, dn, 3) world, que_dir (qn, rn, dn, 3)
         negated unit ray directions).
     """
     dirs_cam = gather_at_coords(directions, coords)
-    dirs_w = torch.einsum("ij,qrj->qri", c2w[:3, :3], dirs_cam)
-    pts = c2w[:3, 3] + dirs_w[:, :, None] * que_depth[..., None]
+    if c2w.dim() == 2:
+        dirs_w = torch.einsum("ij,qrj->qri", c2w[:3, :3], dirs_cam)
+        origin = c2w[:3, 3]
+    else:
+        dirs_w = torch.einsum("qij,qrj->qri", c2w[:, :3, :3], dirs_cam)
+        origin = c2w[:, None, None, :3, 3]
+    pts = origin + dirs_w[:, :, None] * que_depth[..., None]
     que_dir = -dirs_w / torch.linalg.norm(dirs_w, dim=-1, keepdim=True)
     return pts, que_dir[:, :, None].expand(pts.shape)
 

@@ -21,7 +21,8 @@ import torch
 from torch import nn
 
 from panogrf_tpu_torch.core.sphere import get_convention
-from panogrf_tpu_torch.nn.blocks import ResUNetLight, resize_linear
+from panogrf_tpu_torch.nn.blocks import (ResUNetLight, init_parameters_,
+                                         resize_linear)
 from panogrf_tpu_torch.ops.resample import interpolate_feats
 from panogrf_tpu_torch.renderer import render_ops as ro
 from panogrf_tpu_torch.renderer.agg_net import DefaultAggregationNet
@@ -31,21 +32,6 @@ from panogrf_tpu_torch.renderer.dist_decoder import (
 from panogrf_tpu_torch.renderer.init_net import (CostVolumeInitNet,
                                                  DefaultVisEncoder)
 from panogrf_tpu_torch.utils.device import resolve_device
-
-
-@torch.no_grad()
-def init_parameters_(module: nn.Module, generator: torch.Generator) -> None:
-    """Seeded initialisation: LeCun-normal weights, unit norm scales and
-    zero biases (the JAX package's initialisers, untruncated)."""
-    for name, p in module.named_parameters():
-        if p.dim() >= 2:
-            fan_in = p[0].numel()
-            p.copy_(torch.randn(p.shape, generator=generator)
-                    / fan_in ** 0.5)
-        elif name.endswith("weight"):
-            p.fill_(1.0)
-        else:
-            p.zero_()
 
 
 class NeuralRayGenRenderer(nn.Module):
@@ -147,8 +133,9 @@ class NeuralRayGenRenderer(nn.Module):
                         is_fine: bool) -> dict:
         """One rendering pass at given sample depths.
 
-        :param que_depth: (qn, rn, dn); coords (qn, rn, 2); que_c2w (3, 4);
-            que_depth_range (qn, 2); ref_depth_range (rfn, 2).
+        :param que_depth: (qn, rn, dn); coords (qn, rn, 2); que_c2w (3, 4)
+            or, one pose per query, (qn, 3, 4); que_depth_range (qn, 2) or
+            (1, 2); ref_depth_range (rfn, 2).
         """
         dt = self.compute_dtype
         que_dists = ro.depth2inv_dists(que_depth, que_depth_range)

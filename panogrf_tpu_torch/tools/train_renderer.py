@@ -1,20 +1,27 @@
 """Train the generalizable renderer on procedural scenes.
 
     python -m panogrf_tpu_torch.tools.train_renderer --cfg <yaml> \\
-        [--steps N] [--pool P] [--count-jitter 64,64,48,32] [--device cpu]
+        [--steps N] [--pool P] [--count-jitter 64,64,48,32] \\
+        [--depth-source gt|stack] [--mono-ckpt F] [--mvs-ckpt F] \\
+        [--wo-stereo] [--device cpu]
 
-Port of the repo's ``tools/train_renderer.py`` (2-view protocol, reference
-depth from the scenes' true depth).  It reads the repo's YAML configs,
-pre-renders a pool of ``--pool`` synthetic scenes on the device, draws 512
-training rays per step and trains with Adam on the config's lr schedule;
-the checkpoint lands in ``<save_dir>/<name>/latest/model.pth``.  It runs on
-the CUDA device and raises without one unless ``--device cpu`` is given.
+Port of the repo's ``tools/train_renderer.py`` (2-view protocol).  It reads
+the repo's YAML configs, pre-renders a pool of ``--pool`` synthetic scenes
+on the device, draws 512 training rays per step and trains with Adam on
+the config's lr schedule; the checkpoint lands in
+``<save_dir>/<name>/latest/model.pth``.  Every ``val_interval`` steps it
+renders the query view of 2 fixed validation scenes (seeds 10000 + i),
+logs their mean PSNR / SSIM / WS-PSNR and keeps the best checkpoint by
+``psnr_nr`` in ``<save_dir>/<name>/best``.  The reference views' depth is
+the scenes' true depth, or with ``--depth-source stack`` (implied by
+``--mono-ckpt``/``--mvs-ckpt``/``--wo-stereo``) the frozen depth stack's
+prediction, computed once per scene.  It runs on the CUDA device and
+raises without one unless ``--device cpu`` is given.
 
 Not ported yet, and refused with an error: ``--shards``, ``--mesh``,
-``--mv`` (and configs with ``test_views``), the frozen depth stack as
-depth source (``--depth-source stack``, ``--mono-ckpt``, ``--mvs-ckpt``,
-``--wo-stereo``), the consistency loss's ``use_self_hit_prob``, and
-validation (a run must stop before the config's ``val_interval``).
+``--mv`` (and configs with ``test_views``) and the consistency loss's
+``use_self_hit_prob``.  The validation images the JAX tool writes beside
+its metrics (``utils/visualize``) are not written.
 """
 
 from __future__ import annotations
@@ -29,8 +36,12 @@ from panogrf_tpu_torch.config import load_config
 from panogrf_tpu_torch.data import imgs_info
 from panogrf_tpu_torch.data.synthetic import (SphereScene,
                                               make_three_view_sample)
+from panogrf_tpu_torch.models.depth_stack import (load_depth_stack,
+                                                  stack_depth_for_sample)
 from panogrf_tpu_torch.nn.blocks import resize_linear
+from panogrf_tpu_torch.renderer import full_render
 from panogrf_tpu_torch.renderer.renderer import NeuralRayGenRenderer
+from panogrf_tpu_torch.train import metrics as M
 from panogrf_tpu_torch.train.trainer import Trainer, TrainerConfig
 from panogrf_tpu_torch.utils.device import resolve_device
 
@@ -51,10 +62,17 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="'cuda' (default) or 'cpu'")
     ap.add_argument("--log-interval", type=int, default=100,
                     help="print the losses every N steps (and after step 1)")
-    for flag in ("--shards", "--mono-ckpt", "--mvs-ckpt"):
-        ap.add_argument(flag, default=None, help="not ported yet")
-    ap.add_argument("--depth-source", default="gt", choices=["gt", "stack"])
-    ap.add_argument("--wo-stereo", action="store_true", help="not ported yet")
+    ap.add_argument("--depth-source", default=None, choices=["gt", "stack"],
+                    help="reference depth: the scenes' true depth ('gt', "
+                         "the default) or the frozen depth stack's "
+                         "prediction ('stack', implied by the next three)")
+    ap.add_argument("--mono-ckpt", default=None,
+                    help="UniFuse checkpoint (reference-layout file)")
+    ap.add_argument("--mvs-ckpt", default=None,
+                    help="MVS checkpoint (reference-layout file)")
+    ap.add_argument("--wo-stereo", action="store_true",
+                    help="mono-only stack depth: skip the MVS net")
+    ap.add_argument("--shards", default=None, help="not ported yet")
     ap.add_argument("--mesh", type=int, default=0, help="not ported yet")
     ap.add_argument("--mv", type=int, default=0, help="not ported yet")
     return ap.parse_args(argv)
@@ -66,10 +84,6 @@ def _refuse_unported(args, cfg) -> None:
         "--mesh (multi-GPU training)": args.mesh,
         "--mv / test_views (multi-view protocol)":
             args.mv or cfg.data.test_views,
-        "the frozen depth stack (--depth-source stack, --mono-ckpt, "
-        "--mvs-ckpt, --wo-stereo)":
-            args.depth_source == "stack" or args.mono_ckpt or args.mvs_ckpt
-            or args.wo_stereo,
         "use_self_hit_prob (consistency loss)":
             cfg.renderer.use_self_hit_prob,
     }
@@ -86,12 +100,6 @@ def build(args: argparse.Namespace, log_fn=None) -> tuple:
     _refuse_unported(args, cfg)
     dev = resolve_device(args.device)
     num_steps = args.steps or cfg.train.total_step
-    if num_steps >= cfg.train.val_interval:
-        raise NotImplementedError(
-            f"validation (full_render.render_image, every "
-            f"{cfg.train.val_interval} steps) is not ported to "
-            f"panogrf_tpu_torch yet: run fewer than {cfg.train.val_interval}"
-            f" steps")
     R = cfg.renderer
     H, W = R.height, R.width
     DH, DW = cfg.mvs.depth_height, cfg.mvs.depth_width
@@ -115,9 +123,33 @@ def build(args: argparse.Namespace, log_fn=None) -> tuple:
     pool = [make_three_view_sample(
         SphereScene.random(int(rng.integers(1 << 30)), device=dev), H, W,
         cfg.data.m3d_dist, seed=i) for i in range(args.pool)]
-    # each scene's reference depth, resized to the init net's grid once
-    ref_depth = [resize_linear(s["depth_panos"][list(imgs_info.REF_IDS)],
-                               (DH, DW), axes=(1, 2)) for s in pool]
+
+    stack = None
+    if args.depth_source == "stack" or (args.depth_source is None and (
+            args.mono_ckpt or args.mvs_ckpt or args.wo_stereo)):
+        stack = load_depth_stack(
+            args.mono_ckpt, args.mvs_ckpt,
+            # UniFuse's cube fusion needs W >= 128 (1/32-scale ERP)
+            mono_hw=(max(H, 64), max(W, 128)),
+            # the MVS UNet needs >= 32 rows; its depth is resized to DH, DW
+            depth_hw=(max(DH, 32), max(DW, 64)), wo_stereo=args.wo_stereo,
+            device=dev)
+        print(f"depth source: frozen stack (mono="
+              f"{args.mono_ckpt or 'random'}, mvs={args.mvs_ckpt or '-'})")
+
+    # each scene's reference depth on the init net's grid, computed once:
+    # the stack's prediction depends only on the scene's images and poses
+    depth_cache: dict = {}
+
+    def ref_depth(s: dict, key) -> torch.Tensor:
+        if key not in depth_cache:
+            if stack is not None:
+                d = stack_depth_for_sample(stack, s, imgs_info.REF_IDS,
+                                           imgs_info.SRC_IDS)["mvs_depth"]
+            else:
+                d = s["depth_panos"][list(imgs_info.REF_IDS)]
+            depth_cache[key] = resize_linear(d, (DH, DW), axes=(1, 2))
+        return depth_cache[key]
 
     def batches():
         while True:
@@ -127,8 +159,31 @@ def build(args: argparse.Namespace, log_fn=None) -> tuple:
             data = imgs_info.build_render_sample(
                 pool[si], coords, (R.min_depth, R.max_depth),
                 src_for_mvs=False)
-            data["ref_imgs_info"]["mvs_depth"] = ref_depth[si]
+            data["ref_imgs_info"]["mvs_depth"] = ref_depth(pool[si],
+                                                           ("pool", si))
             yield data
+
+    # fixed validation scenes: the query view rendered in full, its
+    # metrics averaged; the trainer keeps the best checkpoint by psnr_nr
+    val_scenes = [make_three_view_sample(
+        SphereScene.random(10_000 + vi, device=dev), H, W,
+        cfg.data.m3d_dist, seed=10_000 + vi) for vi in range(2)]
+
+    def val_fn(model, step) -> dict:
+        vals = []
+        for vi, s in enumerate(val_scenes):
+            ref_info = imgs_info.build_imgs_info(
+                s, imgs_info.REF_IDS, (R.min_depth, R.max_depth))
+            ref_info["mvs_depth"] = ref_depth(s, ("val", vi))
+            que_w2c = imgs_info.pose_w2c(s["rots"], s["trans"])[
+                imgs_info.QUE_ID]
+            c2w = imgs_info.c2w_from_w2c(que_w2c[None])[0]
+            out = full_render.render_image(
+                model, ref_info, c2w, [[R.min_depth, R.max_depth]],
+                chunk=min(8192, H * W), device=dev)
+            m = M.render_metrics(out["rgb"], s["rgb_panos"][imgs_info.QUE_ID])
+            vals.append({k: float(v) for k, v in m.items()})
+        return {k: float(np.mean([v[k] for v in vals])) for k in vals[0]}
 
     tc = TrainerConfig(
         name=cfg.train.name, total_step=num_steps,
@@ -165,7 +220,7 @@ def build(args: argparse.Namespace, log_fn=None) -> tuple:
         if log_fn is not None:
             log_fn(step, m)
 
-    trainer = Trainer(model, forward_fn, tc, log_fn=log,
+    trainer = Trainer(model, forward_fn, tc, val_fn=val_fn, log_fn=log,
                       variant_probs=variant_probs)
     return trainer, batches(), num_steps
 

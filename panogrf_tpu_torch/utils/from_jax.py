@@ -1,12 +1,22 @@
-"""Carry renderer parameters between the JAX package and the port.
+"""Carry parameters between the JAX package and the port.
 
-``renderer_state_dict`` is the inverse of
-``panogrf_tpu/utils/torch_convert.convert_renderer``: the JAX
-``NeuralRayGenRenderer``'s ``params`` tree (a nested dict of numpy arrays)
-becomes a state dict in the reference PyTorch layout, which the port's
-modules use.  Conv kernels (kH, kW, I, O) become (O, I, kH, kW), Dense
-kernels (in, out) become Linear weights (out, in), and GroupNorm
-``scale``/``bias`` become the instance norms' ``weight``/``bias``.
+Each ``*_state_dict`` is the inverse of a converter of
+``panogrf_tpu/utils/torch_convert``: a JAX module's variables (nested
+dicts of numpy arrays) become a state dict in the reference PyTorch
+layout, which the port's modules use.
+
+* ``renderer_state_dict``: ``NeuralRayGenRenderer`` params, inverse of
+  ``convert_renderer``;
+* ``unifuse_state_dict``: ``UniFuse`` params + batch_stats, inverse of
+  ``convert_unifuse``;
+* ``mvs_state_dict``: ``MVSDepthModel`` params + batch_stats, inverse of
+  ``convert_mvs``.
+
+Conv kernels (k..., I, O) become (O, I, k...), Dense kernels (in, out)
+become Linear weights (out, in), GroupNorm ``scale``/``bias`` become the
+instance norms' ``weight``/``bias``, and BatchNorm ``scale``/``bias`` and
+``mean``/``var`` become ``weight``/``bias`` and
+``running_mean``/``running_var`` (with ``num_batches_tracked`` 0).
 """
 
 from __future__ import annotations
@@ -14,6 +24,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+
+from panogrf_tpu_torch.models.mvs import MVSDepthModel
+from panogrf_tpu_torch.models.unifuse import UNIFUSE_DECODER_ORDER, UniFuse
 
 _POOL_STACKS = ("ray_dir_fc", "neuray_fc", "base_fc", "vis_fc", "vis_fc2",
                 "geometry_fc", "rgb_fc")
@@ -23,11 +36,77 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
+# the JAX UniFuse's call order of its anonymous ConvELU and fusion
+# modules, by their names in the reference decoder
+_CONVELU_ORDER = ("upconv_5", "deconv_4", "upconv_4", "deconv_3",
+                  "upconv_3", "deconv_2", "upconv_2", "deconv_1",
+                  "upconv_1", "deconv_0")
+_FUSION_ORDER = ("fusion_5", "fusion_4", "fusion_3", "fusion_2", "fusion_1")
+_BLOCK_COUNTS = {8: (2, 2, 2, 2), 16: (3, 4, 6, 3)}
+
+
 class _StateDict(dict):
     def conv(self, key: str, p: dict) -> None:
-        self[f"{key}.weight"] = _t(np.transpose(p["kernel"], (3, 2, 0, 1)))
+        k = np.asarray(p["kernel"])
+        n = k.ndim
+        self[f"{key}.weight"] = _t(np.transpose(k, (n - 1, n - 2,
+                                                    *range(n - 2))))
         if "bias" in p:
             self[f"{key}.bias"] = _t(p["bias"])
+
+    def batch_norm(self, key: str, p: dict, s: dict) -> None:
+        self[f"{key}.weight"] = _t(p["scale"])
+        self[f"{key}.bias"] = _t(p["bias"])
+        self[f"{key}.running_mean"] = _t(s["mean"])
+        self[f"{key}.running_var"] = _t(s["var"])
+        self[f"{key}.num_batches_tracked"] = torch.tensor(0)
+
+    def resnet(self, prefix: str, p: dict, s: dict) -> None:
+        """``ResNetEncoder`` -> torchvision keys."""
+        self.conv(f"{prefix}.conv1", p["_ConvPad_0"]["Conv_0"])
+        self.batch_norm(f"{prefix}.bn1", p["_BN_0"]["BatchNorm_0"],
+                        s["_BN_0"]["BatchNorm_0"])
+        counts = _BLOCK_COUNTS[sum(k.startswith("ResNetBasicBlock_")
+                                   for k in p)]
+        blk = 0
+        for li, nblocks in enumerate(counts, start=1):
+            for bi in range(nblocks):
+                t = f"{prefix}.layer{li}.{bi}"
+                bp, bs = p[f"ResNetBasicBlock_{blk}"], \
+                    s[f"ResNetBasicBlock_{blk}"]
+                for i in (0, 1):
+                    self.conv(f"{t}.conv{i + 1}",
+                              bp[f"_ConvPad_{i}"]["Conv_0"])
+                    self.batch_norm(f"{t}.bn{i + 1}",
+                                    bp[f"_BN_{i}"]["BatchNorm_0"],
+                                    bs[f"_BN_{i}"]["BatchNorm_0"])
+                if "downsample_conv" in bp:
+                    self.conv(f"{t}.downsample.0", bp["downsample_conv"])
+                    self.batch_norm(f"{t}.downsample.1",
+                                    bp["downsample_bn"]["BatchNorm_0"],
+                                    bs["downsample_bn"]["BatchNorm_0"])
+                blk += 1
+
+    def fusion(self, t: str, p: dict, s: dict | None) -> None:
+        """A CEE, Concat or BiProj fusion layer."""
+        if "res_conv1" in p:
+            for name in ("res_conv1", "res_conv2", "conv"):
+                self.conv(f"{t}.{name}", p[name])
+            for name in ("res_bn1", "res_bn2"):
+                self.batch_norm(f"{t}.{name}", p[name], s[name])
+            if "SELayer_0" in p:
+                se = p["SELayer_0"]
+                self.dense(f"{t}.selayer.fc.0", se["Dense_0"]["kernel"])
+                self.dense(f"{t}.selayer.fc.2", se["Dense_1"]["kernel"])
+        elif "conv_e2c" in p:
+            for name in ("conv_e2c", "conv_c2e", "conv_mask"):
+                self.conv(f"{t}.{name}.0", p[name])
+        else:
+            self.conv(f"{t}.conv", p["Conv_0"])
+
+    def conv3d_block(self, key: str, p: dict) -> None:
+        self.conv(f"{key}.conv1", p["WrapConv3D_0"]["Conv_0"])
+        self.conv(f"{key}.conv2", p["WrapConv3D_1"]["Conv_0"])
 
     def dense(self, key: str, w, b=None) -> None:
         self[f"{key}.weight"] = _t(np.transpose(w))
@@ -125,9 +204,67 @@ def renderer_state_dict(params: dict) -> dict:
     return dict(sd)
 
 
+def unifuse_state_dict(variables: dict) -> dict:
+    """The JAX ``UniFuse``'s variables (``params`` and ``batch_stats``) ->
+    reference-layout state dict of CPU tensors."""
+    p, s = variables["params"], variables.get("batch_stats", {})
+    sd = _StateDict()
+    for enc in ("equi_encoder", "cube_encoder"):
+        sd.resnet(enc, p[enc], s[enc])
+    index = {n: i for i, n in enumerate(UNIFUSE_DECODER_ORDER)}
+    for i, name in enumerate(_CONVELU_ORDER):
+        sd.conv(f"equi_decoder.{index[name]}.conv.conv",
+                p[f"ConvELU_{i}"]["Conv_0"])
+    sd.conv(f"equi_decoder.{index['depthconv_0']}.conv",
+            p["Conv3x3Head_0"]["Conv_0"])
+    for i, name in enumerate(_FUSION_ORDER):
+        kind = next(k for k in (f"CEELayer_{i}", f"Concat_{i}",
+                                f"BiProj_{i}") if k in p)
+        sd.fusion(f"equi_decoder.{index[name]}", p[kind], s.get(kind))
+    if "uncert_head" in p:
+        sd.conv("uncert_head.conv", p["uncert_head"]["Conv_0"])
+    return dict(sd)
+
+
+def mvs_state_dict(variables: dict) -> dict:
+    """The JAX ``MVSDepthModel``'s variables (``Equi`` feature net and
+    ``UNet3D``) -> reference-layout state dict of CPU tensors."""
+    p, s = variables["params"], variables.get("batch_stats", {})
+    sd = _StateDict()
+    fp = p["feature_net"]
+    sd.resnet("unet.equi_encoder", fp["equi_encoder"],
+              s["feature_net"]["equi_encoder"])
+    i = 0
+    while f"ConvELU_{i}" in fp:
+        sd.conv(f"unet.equi_decoder.{i}.conv.conv",
+                fp[f"ConvELU_{i}"]["Conv_0"])
+        i += 1
+    # UNet3D's blocks in call order: encoders 0..n, then the decoders
+    # from the deepest (torch index n-1) to torch index 0
+    u3 = p["unet3d"]
+    n = (len(u3) - 1) // 2
+    for i in range(n + 1):
+        sd.conv3d_block(f"unet3d.encoders.{i}", u3[f"Conv3DBlock_{i}"])
+    for j in range(n):
+        sd.conv3d_block(f"unet3d.decoders.{n - 1 - j}",
+                        u3[f"Conv3DBlock_{n + 1 + j}"])
+    sd.conv("decoders1.conv", p["decoders1"])
+    for i in range(3):
+        dp = p[f"decoders2_{i}"]
+        sd.conv(f"decoders2.{i}.conv1", dp["WrapConv_0"]["Conv_0"])
+        sd.conv(f"decoders2.{i}.conv2", dp["WrapConv_1"]["Conv_0"])
+    return dict(sd)
+
+
 def load_jax_params(model: nn.Module, params: dict) -> nn.Module:
-    """Copy the JAX renderer's parameters into the port ``model`` (every
-    parameter must be matched); returns the model."""
-    sd = renderer_state_dict(params)
+    """Copy a JAX module's variables into the port ``model`` (a renderer,
+    ``UniFuse`` or ``MVSDepthModel``; every parameter and buffer must be
+    matched); returns the model."""
+    if isinstance(model, UniFuse):
+        sd = unifuse_state_dict(params)
+    elif isinstance(model, MVSDepthModel):
+        sd = mvs_state_dict(params)
+    else:
+        sd = renderer_state_dict(params)
     model.load_state_dict(sd, strict=True)
     return model

@@ -13,9 +13,10 @@ import pytest
 import torch
 
 import panogrf_tpu_torch
+from panogrf_tpu_torch.models import depth_stack
 from panogrf_tpu_torch.renderer import full_render
 from panogrf_tpu_torch.renderer.renderer import NeuralRayGenRenderer
-from panogrf_tpu_torch.tools import train_renderer
+from panogrf_tpu_torch.tools import render, train_renderer
 from panogrf_tpu_torch.train.trainer import Trainer
 from torch_port_threads import one_torch_thread  # noqa: F401
 
@@ -45,7 +46,12 @@ def test_no_source_file_mentions_jax():
     pattern = re.compile(r"import jax|from jax|flax|panogrf_tpu\.")
     offenders = [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")
                  if pattern.search(p.read_text())]
-    assert len(_modules()) >= 30
+    assert len(_modules()) >= 41
+    # the depth stack's and the video slice's modules are among them
+    assert {f"panogrf_tpu_torch.{m}" for m in (
+        "core.cubemap", "nn.resnet", "nn.fusion", "models.unifuse",
+        "models.mvs", "models.depth_stack", "ops.cost_volume",
+        "renderer.poses", "train.metrics", "tools.render")} <= set(_modules())
     assert not offenders, offenders
 
 
@@ -73,6 +79,28 @@ def test_entry_points_default_to_cuda(monkeypatch):
                                           dr.repeat(2, 0), chunk=256,
                                           device="cpu")
     assert rgb.shape == (32, 64, 3)
+    c2ws = np.stack([c2w, c2w])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        full_render.render_video_device(model, ref, c2ws, dr,
+                                        dr.repeat(2, 0), chunk=256)
+    assert full_render.render_video_device(
+        model, ref, c2ws, dr, dr.repeat(2, 0), chunk=256,
+        device="cpu").shape == (2, 32, 64, 3)
+    ref_info["depth_range"] = dr.repeat(2, 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        full_render.render_image(model, ref_info, c2w, dr, chunk=512)
+
+    # the depth stack and the render CLI: CUDA unless asked
+    kw_stack = dict(mono_hw=(64, 128), depth_hw=(32, 64),
+                    mvs_kwargs={"num_hypotheses": 8, "cnn3d_base": 8})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        depth_stack.init_depth_stack(0, **kw_stack)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        depth_stack.load_depth_stack(None, None, **kw_stack)
+    stack = depth_stack.init_depth_stack(0, **kw_stack, device="cpu")
+    assert next(stack.parameters()).device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        render.main(["--height", "32", "--width", "64", "--num", "0"])
 
     # the training CLI and the trainer's model: CUDA unless asked
     argv = ["--cfg", str(ROOT / "configs/gen_synthetic_small.yaml"),
