@@ -20,6 +20,12 @@ the wrapper's host cost, then drives the port's two paths at full width
 * the depth stack: UniFuse + the 360-degree MVS net at full width on the
   2 reference views of a 512x1024 scene (ms per scene, peak memory,
   operations, a profile), and the small stack on CUDA against the CPU;
+* depth training: the ``train_mono`` CLI on the mono recipe at 512x1024
+  and the ``train_depth`` CLI on ``configs/depth/m3d_mvs.yaml`` from the
+  mono run's checkpoint (1 warm-up and 5 timed Adam steps each, every
+  parameter and BatchNorm statistic moved, no MLP kernel launched), a
+  profile of one MVS step, one small step of each recipe on CUDA against
+  the CPU, and ``eval_depth`` on the two checkpoints;
 * the composed pipeline: the render CLI at 512x1024 from the stack's
   depth, an eval frame with its metrics and a 4-pose path at frame
   batches of 2 and 1, and a 3-pose video group against its frames on the
@@ -39,6 +45,7 @@ from __future__ import annotations
 import argparse
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -47,10 +54,14 @@ import time
 import numpy as np
 import torch
 
+from panogrf_tpu_torch.core import cubemap
 from panogrf_tpu_torch.data import imgs_info
 from panogrf_tpu_torch.data.synthetic import (SphereScene,
                                               make_three_view_sample)
 from panogrf_tpu_torch.models import depth_stack
+from panogrf_tpu_torch.models import mvs as tmvs
+from panogrf_tpu_torch.models import unifuse as tunifuse
+from panogrf_tpu_torch.nn import blocks as tblocks
 from panogrf_tpu_torch.nn.blocks import resize_linear
 from panogrf_tpu_torch.ops.kernels import _build, fused_mlp
 from panogrf_tpu_torch.renderer import full_render
@@ -58,8 +69,10 @@ from panogrf_tpu_torch.renderer.presets import (PRESET_CHUNK,
                                                 PRESET_COARSE_LOWRES,
                                                 preset_kwargs)
 from panogrf_tpu_torch.renderer.renderer import NeuralRayGenRenderer
+from panogrf_tpu_torch.tools import eval_depth, train_depth, train_mono
 from panogrf_tpu_torch.tools import render as render_tool
 from panogrf_tpu_torch.tools import train_renderer
+from panogrf_tpu_torch.train import depth_trainer
 from panogrf_tpu_torch.train import trainer as trainer_mod
 
 H, W, DH, DW, RFN = 512, 1024, 256, 512, 2
@@ -885,6 +898,278 @@ def depth_stack_cuda_vs_cpu() -> None:
         raise AssertionError(f"depth stack cuda vs cpu: {bad} {errs}")
 
 
+# ---------------------------------------------------------------------------
+# depth-network training
+# ---------------------------------------------------------------------------
+
+DEPTH_STEPS = 6          # 1 warm-up + 5 timed
+DEPTH_RUNS = "data/depth_model"
+MVS_CFG = "configs/depth/m3d_mvs.yaml"
+CONV_KERNELS = re.compile(r"xmma|conv|cudnn|winograd|fft|implicit_gemm|"
+                          r"dgrad|wgrad|gemm", re.I)
+
+
+def _bn_buffers(module: torch.nn.Module) -> dict:
+    return {k: v.detach().clone() for k, v in module.state_dict().items()
+            if k.endswith(("running_mean", "running_var"))}
+
+
+def depth_train_cli(phase: str, tool, argv: list) -> tuple:
+    """A depth-training CLI in process on the card, as its ``main`` runs
+    it without the restore: ``build``, ``fit`` of DEPTH_STEPS steps and
+    ``save``.  ms/step is the median of the CUDA-event intervals between
+    consecutive step ends (each step draws its batch: scene rendering on
+    the card and, for MVS, the frozen prior).  Asserts finite losses,
+    that every parameter and every BatchNorm running statistic moved, and
+    that neither MLP kernel launched.  Returns (trainer, batch stream,
+    checkpoint path, mlp2 launches, mlp3 launches)."""
+    steps = []
+
+    def on_step(step, metrics):
+        torch.cuda.synchronize()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        steps.append({"step": step, "loss": metrics["loss"],
+                      "t": time.perf_counter(), "ev": ev})
+
+    name = argv[argv.index("--name") + 1]
+    shutil.rmtree(f"{DEPTH_RUNS}/{name}", ignore_errors=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    args = tool.parse_args(argv)
+    trainer, stream, num_steps = tool.build(args, on_step)
+    model = trainer.model
+    params0 = {k: p.detach().clone() for k, p in model.named_parameters()}
+    bn0 = _bn_buffers(model)
+    fused_mlp.reset_launches()
+    trainer.fit(stream, num_steps)
+    torch.cuda.synchronize()
+    mlp2, mlp3 = fused_mlp.MLP2_LAUNCHES, fused_mlp.MLP3_LAUNCHES
+    path = trainer.save()
+    total_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    dev_ms = [a["ev"].elapsed_time(b["ev"]) for a, b in zip(steps, steps[1:])]
+    host_ms = [(b["t"] - a["t"]) * 1e3 for a, b in zip(steps, steps[1:])]
+    still = [k for k, p in model.named_parameters()
+             if torch.equal(p.detach(), params0[k])]
+    bn1 = _bn_buffers(model)
+    bn_still = [k for k in bn0 if torch.equal(bn0[k], bn1[k])]
+    losses = [s["loss"] for s in steps]
+    emit({"phase": phase, "argv": argv, "hw": [args.height, args.width],
+          "batch": args.batch, "dtype": "float32", "tf32": False,
+          "steps": len(steps), "losses": losses,
+          "ms_per_step": statistics.median(dev_ms) if dev_ms else None,
+          "ms_per_step_runs": dev_ms, "host_ms_runs": host_ms,
+          "cli_seconds": total_s, "peak_mem_bytes": peak,
+          "params": sum(p.numel() for p in model.parameters()),
+          "param_tensors": len(params0), "params_unchanged": still,
+          "bn_buffers": len(bn0), "bn_buffers_unchanged": bn_still,
+          "mlp2_launches": mlp2, "mlp3_launches": mlp3,
+          "checkpoint": str(path)})
+    if len(steps) != DEPTH_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"{phase}: losses {losses}")
+    if still or bn_still or not bn0:
+        raise AssertionError(f"{phase}: unchanged after {DEPTH_STEPS} steps: "
+                             f"parameters {still}, BatchNorm {bn_still}")
+    if mlp2 or mlp3:
+        raise AssertionError(f"{phase}: mlp2 {mlp2}, mlp3 {mlp3} launches on "
+                             "a path without them")
+    return trainer, stream, path, mlp2, mlp3
+
+
+def depth_train_full_width() -> dict:
+    """The mono recipe (UniFuse ResNet-18, cee fusion with SE, 512x1024,
+    batch 2, l1_sphere) and then the MVS recipe of ``m3d_mvs.yaml``
+    (256x512, batch 2, 64 hypotheses, 5 MaGNet samples, UNet3D base 32,
+    l1_sphere + 0.5 x the aux L1) on the mono run's checkpoint; a profile
+    and the operations of one more MVS step.  Returns the checkpoints and
+    the MLP kernels' launches of each run."""
+    _, _, mono_ckpt, m2a, m3a = depth_train_cli(
+        "depth_train_mono", train_mono,
+        ["--height", str(H), "--width", str(W), "--batch", "2", "--steps",
+         str(DEPTH_STEPS), "--name", "chip_smoke_mono", "--log-interval",
+         "1", "--vis-interval", "0", "--device", "cuda"])
+    mvs, stream, mvs_ckpt, m2b, m3b = depth_train_cli(
+        "depth_train_mvs", train_depth,
+        ["--cfg", MVS_CFG, "--steps", str(DEPTH_STEPS), "--name",
+         "chip_smoke_mvs", "--mono-ckpt", str(mono_ckpt), "--log-interval",
+         "1", "--vis-interval", "0", "--device", "cuda"])
+    # the MVS run's frozen prior is the mono run's checkpoint
+    read = depth_stack.read_checkpoint(mono_ckpt)
+    prior = mvs.frozen["d_net"].state_dict()
+    if set(read) != set(prior) or any(
+            not torch.equal(prior[k].cpu(), read[k]) for k in read):
+        raise AssertionError("depth_train_mvs: the frozen prior is not the "
+                             "mono checkpoint")
+    profile_depth_step(mvs, stream)
+    return {"mono_ckpt": mono_ckpt, "mvs_ckpt": mvs_ckpt,
+            "mlp2": {"mono": m2a, "mvs": m2b}, "mlp3": m3a + m3b}
+
+
+def profile_depth_step(trainer, stream) -> None:
+    """One more MVS step under FlopCounterMode (operations) and one under
+    torch.profiler: device-busy share, kernels, the top kernels, the
+    sweep's backward scatter (autograd's accumulating ``index_put_``) and
+    the convolutions' share of the device time."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as counter:
+        trainer.fit(stream, 1)
+    flops = counter.get_total_flops()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.fit(stream, 1)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = _cuda_kernel_rows(prof)
+    busy = sum(r[1] for r in rows)
+    rows.sort(key=lambda r: -r[1])
+    ops = {e.key: e.device_time_total for e in prof.key_averages()
+           if e.key in ("aten::_index_put_impl_", "aten::index_put_",
+                        "aten::index", "aten::index_add_",
+                        "aten::convolution_backward", "aten::convolution")}
+    conv_us = sum(t for k, t, _ in rows if CONV_KERNELS.search(k))
+    scatter = [(k, t, c) for k, t, c in rows
+               if re.search("index_put|indexing_backward|sort", k)]
+    emit({"phase": "depth_train_profile", "what": "one MVS training step "
+          f"({MVS_CFG}, batch 2)", "flops": flops,
+          "wall_us": wall_us, "device_busy_us": busy,
+          "device_busy_share": busy / wall_us,
+          "tflops_per_s_busy": flops / busy / 1e6 if busy else None,
+          "kernels": sum(r[2] for r in rows),
+          "conv_us": conv_us, "conv_share_of_busy": conv_us / busy,
+          "op_device_us": ops,
+          "top_kernels": [{"kernel": k[:80], "us": t, "count": c}
+                          for k, t, c in rows[:12]]})
+    # the sweep's gradient w.r.t. the source features, on its own line
+    emit({"phase": "depth_train_profile", "what": "sweep backward scatter "
+          "(index_put_ accumulate)",
+          "index_put_device_us": ops.get("aten::_index_put_impl_",
+                                         ops.get("aten::index_put_")),
+          "kernels": [{"kernel": k[:80], "us": t, "count": c}
+                      for k, t, c in scatter]})
+
+
+def _small_depth_step(device: str, recipe: str) -> dict:
+    """One training forward and backward of a small recipe on ``device``
+    from seeded weights (random BatchNorm statistics) and inputs made on
+    the CPU: the loss, each parameter's gradient and the BatchNorm
+    running statistics it updated."""
+    g = torch.Generator().manual_seed(11)
+    if recipe == "mono":
+        model = tunifuse.UniFuse()
+        s = make_three_view_sample(SphereScene.random(11), 64, 128, 0.5,
+                                   seed=11)
+        equi = tunifuse.normalize_imagenet(s["rgb_panos"][:2])
+        batch = {"equi": equi, "cube": cubemap.equi_to_cube(equi, 32),
+                 "gt_depth": torch.clamp(s["depth_panos"][:2], 0, 10)}
+
+        def forward(b):
+            return model(b["equi"], b["cube"])
+    else:
+        model = tmvs.MVSDepthModel(num_hypotheses=8, magnet_num_samples=3,
+                                   cnn3d_base=8)
+        s = make_three_view_sample(SphereScene.random(12), 32, 64, 1.0,
+                                   seed=12)
+        # views moved off each other's longitude seam (ROADMAP Queue 3)
+        trans = s["trans"] + torch.tensor(
+            [[0.11, -0.04, 0.0], [-0.07, 0.05, 0.0], [0.03, 0.09, 0.0]])
+        mono_depth = resize_linear(s["depth_panos"][1:2], (64, 128),
+                                   axes=(1, 2))
+        batch = {"panos": s["rgb_panos"][None, :2].repeat(2, 1, 1, 1, 1),
+                 "rots": s["rots"][None, :2].repeat(2, 1, 1, 1),
+                 "trans": trans[None, :2].repeat(2, 1, 1),
+                 "mono_depth": (mono_depth * torch.tensor([0.9, 1.1])[
+                     :, None, None, None]),
+                 "mono_feat": torch.randn(2, 32, 64, 32, generator=g),
+                 "gt_depth": torch.clamp(s["depth_panos"][1:2], 0, 10)
+                 .repeat(2, 1, 1, 1)}
+
+        def forward(b):
+            out = model(*(b[k] for k in ("panos", "rots", "trans",
+                                         "mono_depth", "mono_feat")))
+            out["pred_depth"] = out.pop("depth")
+            return out
+    tblocks.init_parameters_(model, torch.Generator().manual_seed(13))
+    for m in model.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.running_mean.copy_(torch.randn(m.num_features, generator=g)
+                                 * 0.2)
+            m.running_var.copy_(torch.rand(m.num_features, generator=g)
+                                + 0.5)
+    model.to(device).train()
+    batch = {k: v.to(device) for k, v in batch.items()}
+    trainer = depth_trainer.DepthTrainer(
+        model, forward, depth_trainer.DepthTrainConfig(
+            aux_d1_weight=0.5 if recipe == "mvs" else 0.0))
+    loss = trainer.loss(forward(batch), batch)
+    loss.backward()
+    return {"loss": loss.item(),
+            "grads": {k: p.grad.detach().cpu()
+                      for k, p in model.named_parameters()},
+            "bn": {k: v.cpu() for k, v in _bn_buffers(model).items()}}
+
+
+def depth_train_cuda_vs_cpu() -> None:
+    """One small training forward and backward of each recipe (UniFuse
+    at 64x128; the MVS net at 32x64 with 8 hypotheses, 3 MaGNet samples
+    and UNet3D base 8) on CUDA against the same on the CPU, float32, TF32
+    off: the loss within 1e-4 relative, each parameter's gradient within
+    1e-3 of its L2 norm plus 1e-6 of the tree's largest norm (the error's
+    L2 norm: single elements of the deep convolutions' gradients, behind
+    BatchNorms over 1x1 and 2x4 maps, differ by 1.2e-3 of the largest
+    element), and each updated BatchNorm running statistic within 1e-4 of
+    its scale.  The limits cover the cuDNN algorithms' other summation
+    order and the CUDA gradients' nondeterminism (the atomic adds of
+    index_add_ in the resizes' backward, ~1e-6); the MVS views sit off
+    each other's seam."""
+    for recipe in ("mono", "mvs"):
+        cu, cp = (_small_depth_step(d, recipe) for d in ("cuda", "cpu"))
+        loss_rel = abs(cu["loss"] - cp["loss"]) / abs(cp["loss"])
+        floor = 1e-6 * max(g.norm().item() for g in cp["grads"].values())
+        share = {k: (cu["grads"][k] - g).norm().item()
+                 / (1e-3 * g.norm().item() + floor)
+                 for k, g in cp["grads"].items()}
+        max_share = {k: (cu["grads"][k] - g).abs().max().item()
+                     / max(g.abs().max().item(), 1e-12)
+                     for k, g in cp["grads"].items()}
+        bn = {k: (cu["bn"][k] - v).abs().max().item()
+              / (1e-4 * max(v.abs().max().item(), 1e-6))
+              for k, v in cp["bn"].items()}
+        bad = [k for k, v in {**share, **bn}.items() if v > 1]
+        emit({"phase": "depth_train_cuda_vs_cpu", "recipe": recipe,
+              "dtype": "float32", "loss_cuda": cu["loss"],
+              "loss_cpu": cp["loss"], "loss_rel_err": loss_rel,
+              "grad_worst_limit_share": sorted(
+                  share.items(), key=lambda kv: -kv[1])[:3],
+              "grad_worst_max_abs_rel": sorted(
+                  max_share.items(), key=lambda kv: -kv[1])[:3],
+              "bn_worst_limit_share": sorted(
+                  bn.items(), key=lambda kv: -kv[1])[:3],
+              "over_limit": bad})
+        if not loss_rel <= 1e-4 or bad:
+            raise AssertionError(f"depth_train_cuda_vs_cpu {recipe}: loss "
+                                 f"rel {loss_rel}, over limit {bad}")
+
+
+def depth_eval(mono_ckpt, mvs_ckpt) -> None:
+    """``tools.eval_depth`` on the card at 256x512 from the two
+    checkpoints: the metric table of 4 scenes, finite."""
+    fused_mlp.reset_launches()
+    table = eval_depth.main(["--mono-ckpt", str(mono_ckpt), "--mvs-ckpt",
+                             str(mvs_ckpt), "--device", "cuda"])
+    emit({"phase": "depth_eval", "hw": [DH, DW], "scenes": 4,
+          "table": table, "mlp2_launches": fused_mlp.MLP2_LAUNCHES,
+          "mlp3_launches": fused_mlp.MLP3_LAUNCHES})
+    if not all(np.isfinite(v) for net in table.values()
+               for v in net.values()):
+        raise AssertionError(f"depth_eval: {table}")
+
+
 RENDER_OUT = "data/chip_smoke_render"
 
 
@@ -973,8 +1258,8 @@ def video_cuda() -> None:
                              f" vs {frame_launches} per frame")
 
 
-PHASES = ("kernels", "serving", "training", "depth_stack", "render_cli",
-          "video")
+PHASES = ("kernels", "serving", "training", "depth_stack",
+          "depth_training", "render_cli", "video")
 
 
 def main(argv=None) -> int:
@@ -1016,6 +1301,13 @@ def main(argv=None) -> int:
     if "depth_stack" in phases:
         depth_stack_full_width()
         depth_stack_cuda_vs_cpu()
+    if "depth_training" in phases:
+        runs = depth_train_full_width()
+        row["launches_depth_train_mono"] = runs["mlp2"]["mono"]
+        row["launches_depth_train_mvs"] = runs["mlp2"]["mvs"]
+        row3["launches"] += runs["mlp3"]
+        depth_train_cuda_vs_cpu()
+        depth_eval(runs["mono_ckpt"], runs["mvs_ckpt"])
     if "render_cli" in phases:
         cli = render_cli()
         row["launches_render_cli_eval"] = cli["eval"]

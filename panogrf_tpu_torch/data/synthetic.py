@@ -4,8 +4,10 @@ Port of the ERP half of ``panogrf_tpu/data/synthetic.py``: a textured room
 sphere plus N lambertian spheres, ray-traced in torch on the given device,
 with exact distance depth and full photo-consistency between views.  The
 scene and the camera poses are drawn with numpy exactly as the JAX package
-draws them, so a seed gives the same scene in both.  Cube faces and the
-multi-view sample come with the data slice.
+draws them, so a seed gives the same scene in both.  The 3-view sample
+serves renderer and depth training, the V-view sample
+(``make_multi_view_sample``) multi-view MVS training; cube faces come
+with the data slice.
 """
 
 from __future__ import annotations
@@ -143,4 +145,38 @@ def make_three_view_sample(scene: SphereScene, height: int, width: int,
     return {"rgb_panos": torch.stack(rgbs),
             "depth_panos": torch.stack(depths),
             "rots": r_w2c.expand(3, 3, 3).contiguous(),
+            "trans": torch.stack(trans)}
+
+
+def make_multi_view_sample(scene: SphereScene, height: int, width: int,
+                           num_views: int, spacing: float = 0.5,
+                           seed: int = 0, convention: str = "m3d") -> dict:
+    """``num_views`` views spaced ``spacing`` apart along a shared camera
+    z axis, centred on a random base point, with a random common yaw;
+    rendered on the scene's device.
+
+    :return: dict rgb_panos (V, H, W, 3), depth_panos (V, H, W, 1),
+        rots (V, 3, 3) w2c, trans (V, 3) w2c.
+    """
+    dev = scene.centers.device
+    rng = np.random.default_rng(seed)
+    yaw = rng.uniform(0, 2 * np.pi)
+    cy, sy = np.cos(yaw), np.sin(yaw)
+    rot_c2w = torch.as_tensor([[cy, 0, -sy], [0, 1, 0], [sy, 0, cy]],
+                              dtype=torch.float32, device=dev)
+    base = torch.as_tensor(rng.uniform(-1.0, 1.0, size=3),
+                           dtype=torch.float32, device=dev)
+    z_axis = rot_c2w[:, 2]
+    r_w2c = rot_c2w.T
+    rgbs, depths, trans = [], [], []
+    for off in (np.arange(num_views) - (num_views - 1) / 2.0) * spacing:
+        p = base + float(off) * z_axis
+        rgb, d = render_panorama(scene, p, rot_c2w, height, width,
+                                 convention)
+        rgbs.append(rgb)
+        depths.append(d)
+        trans.append(-r_w2c @ p)
+    return {"rgb_panos": torch.stack(rgbs),
+            "depth_panos": torch.stack(depths),
+            "rots": r_w2c.expand(num_views, 3, 3).contiguous(),
             "trans": torch.stack(trans)}

@@ -8,8 +8,10 @@ ground-truth depth is read.  The stack runs in eval mode under
 
 ``load_depth_stack`` reads reference-layout checkpoints (``.pth``,
 ``.pt``, ``.tar``, ``.ckpt``) straight into the modules, with no
-conversion step.  Orbax directories (the JAX depth trainer's output) are
-not readable by the port.
+conversion step: released reference checkpoints and the port's depth
+trainers' ``checkpoint_{step}.pth`` files (an MVS checkpoint carries its
+frozen mono net as ``d_net.*`` and loads alone).  Orbax directories (the
+JAX depth trainer's output) are not readable by the port.
 """
 
 from __future__ import annotations
@@ -140,7 +142,7 @@ def load_reference_state(module: nn.Module, sd: dict) -> None:
                            strict=True)
 
 
-def _dnet(sd: dict) -> dict:
+def extract_dnet(sd: dict) -> dict:
     """The frozen mono net inside an MVS checkpoint (``d_net.*``)."""
     return {k[len("d_net."):]: v for k, v in sd.items()
             if k.startswith("d_net.")}
@@ -159,20 +161,29 @@ def load_depth_stack(mono_ckpt: str | None, mvs_ckpt: str | None = None,
     an MVS checkpoint), else from ``mvs_ckpt``'s ``d_net.*`` keys, else
     random weights.  Without ``mvs_ckpt`` the MVS net is skipped, as in the
     JAX package, unless ``random_mvs`` asks for one with random weights;
-    ``wo_stereo`` always skips it.
+    ``wo_stereo`` always skips it.  An MVS checkpoint's head shapes set
+    the net's ``num_hypotheses`` and ``mvs_uncertainty`` unless
+    ``mvs_kwargs`` gives them.
     """
     mvs_sd = read_checkpoint(mvs_ckpt) if mvs_ckpt else None
+    mvs_kwargs = {"max_depth": max_depth, **(mvs_kwargs or {})}
+    if mvs_sd is not None:
+        # the heads' shapes give the hypotheses and the (depth, sigma) head
+        mvs_kwargs.setdefault("num_hypotheses",
+                              mvs_sd["decoders1.conv.weight"].shape[1])
+        mvs_kwargs.setdefault(
+            "mvs_uncertainty",
+            mvs_sd["decoders2.2.conv2.weight"].shape[0] == 2)
     stack = init_depth_stack(
         seed, mono_hw, depth_hw,
         wo_stereo=wo_stereo or (mvs_ckpt is None and not random_mvs),
-        mvs_kwargs={"max_depth": max_depth, **(mvs_kwargs or {})},
-        device=device)
+        mvs_kwargs=mvs_kwargs, device=device)
     mono_sd = None
     if mono_ckpt:
         mono_sd = read_checkpoint(mono_ckpt)
-        mono_sd = _dnet(mono_sd) or mono_sd
-    elif mvs_sd is not None and _dnet(mvs_sd):
-        mono_sd = _dnet(mvs_sd)
+        mono_sd = extract_dnet(mono_sd) or mono_sd
+    elif mvs_sd is not None and extract_dnet(mvs_sd):
+        mono_sd = extract_dnet(mvs_sd)
     if mono_sd is not None:
         load_reference_state(stack.mono_model, mono_sd)
     if mvs_sd is not None and stack.mvs_model is not None:

@@ -1,20 +1,29 @@
-"""UniFuse 360-degree monocular depth and the Equi feature network.
+"""360-degree monocular depth networks and the Equi feature network.
 
-Port of ``UniFuse`` and ``Equi`` from ``panogrf_tpu/models/unifuse.py``:
+Port of ``panogrf_tpu/models/unifuse.py``:
 
 * ``UniFuse``: a ResNet ERP encoder and a ResNet cubemap encoder (the 6
   faces folded into the batch), per-level cube->ERP resampling fused into
   the ERP decoder, a sigmoid depth head;
+* ``EquiDepth``: UniFuse without the cubemap branch (the ``Equi`` choice
+  of ``select_mono``);
+* ``CubeDepth``: the cube encoder alone, its features resampled to ERP
+  and decoded with no fusion (the ``Cube`` ablation);
 * ``Equi``: the ERP-only encoder/decoder that gives the MVS net its
-  32-channel features at 1/4 resolution.
+  32-channel features at 1/4 resolution;
+* ``MONO_NETS`` and ``select_mono``, the config-driven factory.
 
-Parameter names are the reference layout that
-``torch_convert.convert_unifuse``/``convert_equi`` read: encoders under
+Each mono net has the optional (mu, sigma) ``uncertainty`` head.  Parameter
+names are the reference layout that ``torch_convert.convert_unifuse``,
+``convert_equi_depth`` and ``convert_equi`` read: encoders under
 ``equi_encoder``/``cube_encoder`` and the decoder as one flat ModuleList
-``equi_decoder.{i}`` in the reference's registration order.  Inputs and
-outputs are channel-last, as in the JAX package; the convs run NCHW.
-``EquiDepth``, ``ERPTPDepth``, ``CubeDepth`` and ``select_mono`` are not
-ported yet.
+``equi_decoder.{i}`` in the reference's registration order (``CubeDepth``,
+which has no reference converter, uses ``EquiDepth``'s decoder layout).
+Inputs and outputs are channel-last, as in the JAX package; the convs run
+NCHW.  Training mode is the modules' ``train()``: BatchNorm then uses and
+updates batch statistics (``nn/resnet.BatchNorm2d``).  ``ERPTPDepth`` and
+the MobileNetV2 encoder are not ported yet, and ``select_mono`` refuses
+them.
 """
 
 from __future__ import annotations
@@ -42,6 +51,9 @@ UNIFUSE_DECODER_ORDER = (
     "fusion_1", "deconv_1", "upconv_1", "deconv_0", "depthconv_0")
 EQUI_DECODER_ORDER = ("upconv_5", "deconv_4", "upconv_4", "deconv_3",
                       "upconv_3", "deconv_2", "upconv_2")
+# decoder ModuleList order of EquiDepth (and of CubeDepth)
+EQUI_DEPTH_DECODER_ORDER = EQUI_DECODER_ORDER + (
+    "deconv_1", "upconv_1", "deconv_0", "depthconv_0")
 
 
 def normalize_imagenet(x: torch.Tensor) -> torch.Tensor:
@@ -77,7 +89,84 @@ class ConvELU(nn.Module):
         return F.elu(self.conv(x))
 
 
-class UniFuse(nn.Module):
+def _depth_decoder(wrap: bool, narrow: bool = False) -> dict:
+    """The mono nets' decoder convs by reference name: ``upconv_{l}``,
+    ``deconv_{l}`` and the depth head ``depthconv_0``.  ``narrow`` is the
+    JAX package's ``CubeDepth`` ladder, whose ``upconv_{4,3,2}`` give
+    ``NUM_CH_DEC[l - 2]`` channels where UniFuse's give
+    ``NUM_CH_DEC[l - 1]``."""
+    enc, dec = NUM_CH_ENC, NUM_CH_DEC
+    up_ch = {5: dec[4], 1: dec[0]}
+    for lvl in (4, 3, 2):
+        up_ch[lvl] = dec[lvl - 2] if narrow else dec[lvl - 1]
+    mods = {"upconv_5": ConvELU(enc[4], up_ch[5], wrap),
+            "deconv_0": ConvELU(dec[0], dec[0], wrap),
+            "depthconv_0": Conv3x3(dec[0], 1, wrap)}
+    for lvl in (4, 3, 2, 1):
+        mods[f"deconv_{lvl}"] = ConvELU(up_ch[lvl + 1] + enc[lvl - 1],
+                                        dec[lvl], wrap)
+        mods[f"upconv_{lvl}"] = ConvELU(dec[lvl], up_ch[lvl], wrap)
+    return mods
+
+
+class _MonoDepth(nn.Module):
+    """The decoder ladder and heads the mono nets share.  Subclasses
+    register ``equi_decoder`` (a ModuleList in ``self.order``) and call
+    ``decode`` with ``feat(level)``, the NCHW map fed in at each level
+    5..1."""
+
+    order: tuple = EQUI_DEPTH_DECODER_ORDER
+
+    def _heads(self, max_depth: float, uncertainty: bool, wrap: bool):
+        self.max_depth = max_depth
+        self.uncert_head = (Conv3x3(NUM_CH_DEC[0], 2, wrap) if uncertainty
+                            else None)
+
+    def decode(self, feat) -> dict:
+        """Run the ladder on ``feat(level)`` and the heads: ``mono_feat``
+        (B, H/2, W/2, 32), ``pred_depth`` (B, H, W, 1) and with the
+        uncertainty head ``pred`` (B, H, W, 2) = (mu, sigma)."""
+        d = dict(zip(self.order, self.equi_decoder))
+        x = _up(d["upconv_5"](feat(5)))                          # 1/16
+        for lvl in (4, 3, 2):
+            x = d[f"deconv_{lvl}"](torch.cat([x, feat(lvl)], 1))
+            x = _up(d[f"upconv_{lvl}"](x))
+        x = d["deconv_1"](torch.cat([x, feat(1)], 1))
+        # the MVS net reads this deconv_1 feature (32 ch at 1/2 res)
+        outputs = {"mono_feat": x.permute(0, 2, 3, 1)}
+        x = d["deconv_0"](_up(d["upconv_1"](x)))                 # 1/1
+        outputs["pred_depth"] = self.depth_head(
+            d["depthconv_0"](x)).permute(0, 2, 3, 1)
+        if self.uncert_head is not None:
+            pred = self.uncert_head(x)
+            mu = self.max_depth * torch.sigmoid(pred[:, :1])
+            sigma = F.softplus(pred[:, 1:]) + 1e-3
+            outputs["pred"] = torch.cat([mu, sigma], 1).permute(0, 2, 3, 1)
+        return outputs
+
+    def depth_head(self, out: torch.Tensor) -> torch.Tensor:
+        return self.max_depth * torch.sigmoid(out)
+
+
+def _cube_to_erp(cube_feats: list, b: int, h: int, w: int):
+    """``feat(level)``: the level's cube features (B*6, C, f, f)
+    resampled to ERP (B, C, H >> level, W >> level)."""
+    def feat(level: int) -> torch.Tensor:
+        cf = cube_feats[level - 1]
+        c, f = cf.shape[1], cf.shape[2]
+        stacked = cf.permute(0, 2, 3, 1).reshape(b, 6, f, f, c)
+        return cubemap.cube_to_equi(stacked, h >> level,
+                                    w >> level).permute(0, 3, 1, 2)
+    return feat
+
+
+def _encode_cube(encoder: nn.Module, cube: torch.Tensor) -> list:
+    b, six, fw = cube.shape[:3]
+    assert six == 6
+    return encoder(cube.reshape(b * 6, fw, fw, 3).permute(0, 3, 1, 2))
+
+
+class UniFuse(_MonoDepth):
     """Two-branch 360 mono-depth network.
 
     ``forward(equi (B, H, W, 3), cube (B, 6, H/2, H/2, 3))``, both
@@ -86,73 +175,83 @@ class UniFuse(nn.Module):
     and, with ``uncertainty``, ``pred`` (B, H, W, 2) = (mu, sigma).
     """
 
+    order = UNIFUSE_DECODER_ORDER
+
     def __init__(self, max_depth: float = 10.0, min_depth: float = 0.1,
                  fusion_type: str = "cee", se_in_fusion: bool = True,
                  wrap: bool = True, out_type: str = "depth",
                  uncertainty: bool = False, num_layers: int = 18):
         super().__init__()
-        self.max_depth, self.min_depth = max_depth, min_depth
+        self.min_depth = min_depth
         self.out_type = out_type
         self.equi_encoder = make_encoder(num_layers, wrap)
         self.cube_encoder = make_encoder(num_layers, wrap=False)
-        enc, dec = NUM_CH_ENC, NUM_CH_DEC
-        mods = {
-            "fusion_5": make_fusion(fusion_type, enc[4], se_in_fusion),
-            "upconv_5": ConvELU(enc[4], dec[4], wrap),
-            "deconv_0": ConvELU(dec[0], dec[0], wrap),
-            "depthconv_0": Conv3x3(dec[0], 1, wrap),
-        }
-        for lvl in (4, 3, 2, 1):
-            mods[f"fusion_{lvl}"] = make_fusion(fusion_type, enc[lvl - 1],
-                                                se_in_fusion)
-            mods[f"deconv_{lvl}"] = ConvELU(dec[lvl] + enc[lvl - 1],
-                                            dec[lvl], wrap)
-            mods[f"upconv_{lvl}"] = ConvELU(dec[lvl], dec[lvl - 1], wrap)
-        self.equi_decoder = nn.ModuleList(mods[n]
-                                          for n in UNIFUSE_DECODER_ORDER)
-        self.uncert_head = Conv3x3(dec[0], 2, wrap) if uncertainty else None
+        mods = _depth_decoder(wrap)
+        for lvl in (5, 4, 3, 2, 1):
+            mods[f"fusion_{lvl}"] = make_fusion(
+                fusion_type, NUM_CH_ENC[lvl - 1], se_in_fusion)
+        self.equi_decoder = nn.ModuleList(mods[n] for n in self.order)
+        self._heads(max_depth, uncertainty, wrap)
+
+    def depth_head(self, out: torch.Tensor) -> torch.Tensor:
+        if self.out_type == "disparity":
+            max_disp, min_disp = 1.0 / self.min_depth, 1.0 / self.max_depth
+            return 1.0 / (torch.sigmoid(out) * (max_disp - min_disp)
+                          + min_disp)
+        return super().depth_head(out)
 
     def forward(self, equi: torch.Tensor, cube: torch.Tensor) -> dict:
         b, h, w, _ = equi.shape
-        assert cube.shape[1] == 6 and cube.shape[2] == h // 2
-        fw = cube.shape[2]
+        assert cube.shape[2] == h // 2
         equi_feats = self.equi_encoder(equi.permute(0, 3, 1, 2))
-        cube_feats = self.cube_encoder(
-            cube.reshape(b * 6, fw, fw, 3).permute(0, 3, 1, 2))
-        d = dict(zip(UNIFUSE_DECODER_ORDER, self.equi_decoder))
+        c2e = _cube_to_erp(_encode_cube(self.cube_encoder, cube), b, h, w)
+        fusion = dict(zip(self.order, self.equi_decoder))
 
-        def fusion(level: int) -> torch.Tensor:
-            """Fuse the level's ERP features with its cube features
+        def feat(level: int) -> torch.Tensor:
+            """The level's ERP features fused with its cube features
             resampled to ERP."""
-            cf = cube_feats[level - 1]
-            c, f = cf.shape[1], cf.shape[2]
-            stacked = cf.permute(0, 2, 3, 1).reshape(b, 6, f, f, c)
-            c2e = cubemap.cube_to_equi(stacked, h >> level, w >> level)
-            return d[f"fusion_{level}"](equi_feats[level - 1],
-                                        c2e.permute(0, 3, 1, 2))
+            return fusion[f"fusion_{level}"](equi_feats[level - 1],
+                                             c2e(level))
+        return self.decode(feat)
 
-        x = _up(d["upconv_5"](fusion(5)))                        # 1/16
-        for lvl in (4, 3, 2):
-            x = d[f"deconv_{lvl}"](torch.cat([x, fusion(lvl)], 1))
-            x = _up(d[f"upconv_{lvl}"](x))
-        x = d["deconv_1"](torch.cat([x, fusion(1)], 1))
-        # the MVS net reads this deconv_1 feature (32 ch at 1/2 res)
-        outputs = {"mono_feat": x.permute(0, 2, 3, 1)}
-        x = d["deconv_0"](_up(d["upconv_1"](x)))                 # 1/1
-        equi_out = d["depthconv_0"](x)
-        if self.out_type == "disparity":
-            max_disp, min_disp = 1.0 / self.min_depth, 1.0 / self.max_depth
-            depth = 1.0 / (torch.sigmoid(equi_out) * (max_disp - min_disp)
-                           + min_disp)
-        else:
-            depth = self.max_depth * torch.sigmoid(equi_out)
-        outputs["pred_depth"] = depth.permute(0, 2, 3, 1)
-        if self.uncert_head is not None:
-            pred = self.uncert_head(x)
-            mu = self.max_depth * torch.sigmoid(pred[:, :1])
-            sigma = F.softplus(pred[:, 1:]) + 1e-3
-            outputs["pred"] = torch.cat([mu, sigma], 1).permute(0, 2, 3, 1)
-        return outputs
+
+class EquiDepth(_MonoDepth):
+    """ERP-only mono-depth network: UniFuse's decoder ladder and heads on
+    the ERP encoder alone.  ``forward(equi (B, H, W, 3))``."""
+
+    def __init__(self, max_depth: float = 10.0, wrap: bool = True,
+                 uncertainty: bool = False, num_layers: int = 18):
+        super().__init__()
+        self.equi_encoder = make_encoder(num_layers, wrap)
+        mods = _depth_decoder(wrap)
+        self.equi_decoder = nn.ModuleList(mods[n] for n in self.order)
+        self._heads(max_depth, uncertainty, wrap)
+
+    def forward(self, equi: torch.Tensor) -> dict:
+        feats = self.equi_encoder(equi.permute(0, 3, 1, 2))
+        return self.decode(lambda level: feats[level - 1])
+
+
+class CubeDepth(_MonoDepth):
+    """Cubemap-only mono-depth network: only the cube encoder runs, and
+    the decoder reads its features resampled to ERP, with no ERP branch
+    and no fusion; its ladder is the JAX package's narrower one (see
+    ``_depth_decoder``).  ``forward(equi (B, H, W, 3), cube (B, 6, H/2,
+    H/2, 3))``; ``equi`` gives only the output size."""
+
+    def __init__(self, max_depth: float = 10.0, wrap: bool = True,
+                 uncertainty: bool = False, num_layers: int = 18):
+        super().__init__()
+        self.cube_encoder = make_encoder(num_layers, wrap=False)
+        mods = _depth_decoder(wrap, narrow=True)
+        self.equi_decoder = nn.ModuleList(mods[n] for n in self.order)
+        self._heads(max_depth, uncertainty, wrap)
+
+    def forward(self, equi: torch.Tensor, cube: torch.Tensor) -> dict:
+        b, h, w, _ = equi.shape
+        assert cube.shape[2] == h // 2
+        return self.decode(_cube_to_erp(
+            _encode_cube(self.cube_encoder, cube), b, h, w))
 
 
 class Equi(nn.Module):
@@ -185,3 +284,44 @@ class Equi(nn.Module):
             x = _up(d[f"upconv_{lvl}"](x))
         x = d["deconv_2"](torch.cat([x, feats[1]], 1))
         return d["upconv_2"](x).permute(0, 2, 3, 1)
+
+
+MONO_NETS = ("UniFuse", "Equi", "ERP+TP", "Cube")
+
+
+def select_mono(cfg, mvsnet: bool = False) -> nn.Module:
+    """The mono-depth network a config names (``mono_net``), with its
+    ``mono_uncertainty`` head, ``max_depth``, ``use_wrap_padding`` and
+    encoder depth.  ``mvsnet`` picks the ``mono_*`` knobs (the frozen mono
+    net inside the MVS pipeline); the standalone mono trainer reads
+    ``num_layers``/``fusion`` first.  ``cfg`` is a mapping or an object
+    with those attributes.  ``ERP+TP`` and the MobileNetV2 encoder
+    (``num_layers`` 2) are not ported yet."""
+    get = (cfg.get if hasattr(cfg, "get")
+           else lambda k, d=None: getattr(cfg, k, d))
+    name = get("mono_net", "UniFuse")
+    uncert = bool(get("mono_uncertainty", False))
+    max_depth = float(get("max_depth", 10.0))
+    wrap = bool(get("use_wrap_padding", True))
+    if mvsnet:
+        layers = int(get("mono_num_layers", 18))
+        fusion = str(get("mono_fusion", "cee"))
+    else:
+        layers = int(get("num_layers", get("mono_num_layers", 18)))
+        fusion = str(get("fusion", get("mono_fusion", "cee")))
+    if name == "ERP+TP":
+        raise NotImplementedError("the ERP+TP mono net is not ported to "
+                                  "panogrf_tpu_torch yet")
+    if name not in MONO_NETS:
+        raise ValueError(f"unknown mono_net {name!r}; available: "
+                         f"{MONO_NETS}")
+    if layers == 2:
+        raise NotImplementedError("the MobileNetV2 encoder is not ported to "
+                                  "panogrf_tpu_torch yet")
+    if name == "UniFuse":
+        return UniFuse(max_depth=max_depth, uncertainty=uncert, wrap=wrap,
+                       num_layers=layers, fusion_type=fusion,
+                       se_in_fusion=bool(get("se_in_fusion", True)))
+    cls = EquiDepth if name == "Equi" else CubeDepth
+    return cls(max_depth=max_depth, uncertainty=uncert, wrap=wrap,
+               num_layers=layers)

@@ -6,9 +6,15 @@ encoder is not ported yet).  Parameters carry torchvision's names
 the layout ``torch_convert.convert_resnet_encoder`` reads, so a released
 UniFuse checkpoint loads as it is.  Every conv pads itself before a VALID
 conv: wrap padding (circular W, zero H) for ERP encoders, zero padding for
-the cube encoder.  BatchNorm is torch's (eps 1e-5; the JAX package's
-momentum 0.9 is torch's 0.1) and the depth stack runs it in eval mode.
-NCHW in, a list of 5 NCHW maps out.
+the cube encoder.  NCHW in, a list of 5 NCHW maps out.
+
+BatchNorm (:class:`BatchNorm2d`, also used by ``nn/fusion.py``) follows
+the JAX package rather than torch: in eval mode it normalises with the
+running statistics; in training mode it normalises with the batch's mean
+and biased variance and moves the running statistics towards them with
+momentum 0.9 (eps 1e-5).  Torch's own ``nn.BatchNorm2d`` moves the running
+variance towards the unbiased batch variance, which differs by n / (n - 1)
+and would leave other running statistics after every training step.
 """
 
 from __future__ import annotations
@@ -22,8 +28,25 @@ from torch import nn
 from panogrf_tpu_torch.nn.blocks import PadConv2d
 
 
-def batch_norm(channels: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` (same parameters and buffers, so reference
+    checkpoints load) whose training-mode update of the running statistics
+    uses the biased batch variance: running = 0.9 running + 0.1 batch."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True,
+                            0.0, self.eps)
+
+
+def batch_norm(channels: int) -> BatchNorm2d:
+    return BatchNorm2d(channels, eps=1e-5, momentum=0.1)
 
 
 class ResNetBasicBlock(nn.Module):

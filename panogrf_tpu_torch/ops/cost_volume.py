@@ -1,13 +1,22 @@
-"""Spherical-sweep cost volume (vectorised warp-and-diff), forward only.
+"""Spherical-sweep cost volume (vectorised warp-and-diff).
 
 Port of ``panogrf_tpu/ops/cost_volume.py``.  For each reference pixel with
 unit direction d and hypothesis depth t the world point is
 R_ref^T (t d - t_ref); its source-camera position R_src w + t_src is
 projected to ERP pixel coordinates (pixel-centre grid) and the source
 features are sampled there bilinearly (wrap-x, border-y).  The whole
-(D, H, W) sweep is one batched gather.  The depth stack is frozen, so
-only the forward is ported; the JAX package's matmul-backward sampler is a
-device for the sweep's gradient and has the same forward.
+(D, H, W) sweep is one batched gather.
+
+Gradients: the cost volume is differentiable in both feature maps, so the
+MVS trainer reaches the feature net through it.  The gradient of the
+source features is autograd's transpose of the 4-tap gather, an
+accumulating scatter over the points.  The JAX package computes the same
+gradient with dense one-hot matmuls (``make_mm_backward_sampler``), since
+scatters serialise on the TPU; on a GPU the scatter is the O(points)
+form.  The sample coordinates are geometry of the frozen mono depth and
+the poses: they are computed without a graph, which is the JAX sampler's
+zero cotangent for them.  Callers that want no graph at all (the frozen
+depth stack) run under ``torch.inference_mode``.
 """
 
 from __future__ import annotations
@@ -74,7 +83,6 @@ def spherical_sweep_cost(ref_feats: torch.Tensor, src_feats: torch.Tensor,
                               cost_type)[0]
 
 
-@torch.no_grad()
 def batched_sweep_cost(ref_feats: torch.Tensor, src_feats: torch.Tensor,
                        depth_volume: torch.Tensor, rots: torch.Tensor,
                        trans: torch.Tensor, convention: SphereConvention,
@@ -83,9 +91,10 @@ def batched_sweep_cost(ref_feats: torch.Tensor, src_feats: torch.Tensor,
     (B, H, W, C), depth_volume (B, D, H, W), rots (B, 2, 3, 3) and trans
     (B, 2, 3) with index 0 = src, 1 = ref -> (B, D, H, W, C)."""
     _, h, w, _ = ref_feats.shape
-    uv, _ = sweep_coordinates(depth_volume,
-                              dirs_for(convention, h, w, ref_feats.device),
-                              rots[:, 1], trans[:, 1], rots[:, 0],
-                              trans[:, 0], convention, h, w)
+    with torch.no_grad():
+        uv, _ = sweep_coordinates(
+            depth_volume, dirs_for(convention, h, w, ref_feats.device),
+            rots[:, 1], trans[:, 1], rots[:, 0], trans[:, 0], convention,
+            h, w)
     warped = batched_bilinear_sample(src_feats, uv)         # (B, D, H, W, C)
     return _cost(warped, ref_feats[:, None], cost_type)

@@ -12,7 +12,9 @@ the config's lr schedule; the checkpoint lands in
 ``<save_dir>/<name>/latest/model.pth``.  Every ``val_interval`` steps it
 renders the query view of 2 fixed validation scenes (seeds 10000 + i),
 logs their mean PSNR / SSIM / WS-PSNR and keeps the best checkpoint by
-``psnr_nr`` in ``<save_dir>/<name>/best``.  The reference views' depth is
+``psnr_nr`` in ``<save_dir>/<name>/best``; each validation writes the
+scenes' ``gt | pred`` images and turbo depth maps under
+``<save_dir>/<name>/vis``.  The reference views' depth is
 the scenes' true depth, or with ``--depth-source stack`` (implied by
 ``--mono-ckpt``/``--mvs-ckpt``/``--wo-stereo``) the frozen depth stack's
 prediction, computed once per scene.  It runs on the CUDA device and
@@ -20,14 +22,14 @@ raises without one unless ``--device cpu`` is given.
 
 Not ported yet, and refused with an error: ``--shards``, ``--mesh``,
 ``--mv`` (and configs with ``test_views``) and the consistency loss's
-``use_self_hit_prob``.  The validation images the JAX tool writes beside
-its metrics (``utils/visualize``) are not written.
+``use_self_hit_prob``.
 """
 
 from __future__ import annotations
 
 import argparse
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -43,6 +45,7 @@ from panogrf_tpu_torch.renderer import full_render
 from panogrf_tpu_torch.renderer.renderer import NeuralRayGenRenderer
 from panogrf_tpu_torch.train import metrics as M
 from panogrf_tpu_torch.train.trainer import Trainer, TrainerConfig
+from panogrf_tpu_torch.utils import visualize as V
 from panogrf_tpu_torch.utils.device import resolve_device
 
 TRAIN_RAYS = 512
@@ -169,6 +172,8 @@ def build(args: argparse.Namespace, log_fn=None) -> tuple:
         SphereScene.random(10_000 + vi, device=dev), H, W,
         cfg.data.m3d_dist, seed=10_000 + vi) for vi in range(2)]
 
+    vis_dir = Path(cfg.train.save_dir) / cfg.train.name / "vis"
+
     def val_fn(model, step) -> dict:
         vals = []
         for vi, s in enumerate(val_scenes):
@@ -181,7 +186,11 @@ def build(args: argparse.Namespace, log_fn=None) -> tuple:
             out = full_render.render_image(
                 model, ref_info, c2w, [[R.min_depth, R.max_depth]],
                 chunk=min(8192, H * W), device=dev)
-            m = M.render_metrics(out["rgb"], s["rgb_panos"][imgs_info.QUE_ID])
+            gt = s["rgb_panos"][imgs_info.QUE_ID]
+            m = M.render_metrics(out["rgb"], gt)
+            V.dump_render_val(vis_dir, step, vi, gt.cpu().numpy(),
+                              out["rgb"].cpu().numpy(),
+                              pred_depth=out["depth"].cpu().numpy())
             vals.append({k: float(v) for k, v in m.items()})
         return {k: float(np.mean([v[k] for v in vals])) for k in vals[0]}
 

@@ -1,13 +1,16 @@
-"""Loss registry for renderer training.
+"""Losses of renderer and depth-network training.
 
-Port of the renderer half of ``panogrf_tpu/train/losses.py``: every loss is
-a function (data_pr, data_gt, step) -> dict of per-sample losses, and the
-trainer sums the mean of every ``*loss*`` entry.  The depth-network losses
-come with the depth slice.
+Port of ``panogrf_tpu/train/losses.py``.  Renderer losses are functions
+(data_pr, data_gt, step) -> dict of per-sample losses, and the trainer
+sums the mean of every ``*loss*`` entry (``NAME2LOSS``, ``total_loss``).
+The depth-network losses (``l1_sphere_loss``, ``berhu_loss``,
+``gaussian_nll_loss``, ``laplacian_nll_loss``) take channel-last
+(B, H, W, 1) maps and return a scalar.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict
 
 import torch
@@ -118,3 +121,68 @@ def total_loss(loss_terms: dict) -> torch.Tensor:
         if "loss" in k:
             total = total + torch.mean(v)
     return total
+
+
+# ---------------------------------------------------------------------------
+# depth-network losses (mono / MVS training)
+# ---------------------------------------------------------------------------
+
+def sin_phi_map(height: int, width: int, device=None) -> torch.Tensor:
+    """sin of each ERP row's polar angle at the pixel centre, (H, W)."""
+    v = (torch.arange(height, dtype=torch.float32, device=device) + 0.5) \
+        * (math.pi / height)
+    return torch.sin(v)[:, None].expand(height, width)
+
+
+def l1_sphere_loss(pred: torch.Tensor, gt: torch.Tensor,
+                   mask: torch.Tensor | None = None) -> torch.Tensor:
+    """sin(phi)-weighted L1 of (B, H, W, 1) maps; ``mask`` optional
+    validity of the same shape."""
+    b, h, w, _ = pred.shape
+    wmap = sin_phi_map(h, w, pred.device)[None, :, :, None]
+    diff = torch.abs(pred - gt) * wmap
+    if mask is not None:
+        return torch.sum(diff * mask) / (torch.sum(mask * wmap) + 1e-7)
+    return torch.sum(diff) / (torch.sum(wmap) * b + 1e-7)
+
+
+def berhu_loss(pred: torch.Tensor, gt: torch.Tensor,
+               mask: torch.Tensor | None = None,
+               threshold: float = 0.2) -> torch.Tensor:
+    """Reverse Huber: L1 below ``threshold`` x the largest error, scaled
+    L2 above it."""
+    diff = torch.abs(pred - gt)
+    if mask is not None:
+        diff = diff * mask
+    delta = threshold * torch.max(diff)
+    part1 = torch.where(diff <= delta, diff, 0.0)
+    part2 = torch.where(diff > delta,
+                        (diff ** 2 + delta ** 2) / (2 * delta + 1e-9), 0.0)
+    denom = torch.sum(mask) + 1e-7 if mask is not None else diff.numel()
+    return torch.sum(part1 + part2) / denom
+
+
+def gaussian_nll_loss(mu: torch.Tensor, sigma: torch.Tensor,
+                      gt: torch.Tensor, mask: torch.Tensor | None = None,
+                      sin_weighted: bool = True) -> torch.Tensor:
+    """Gaussian negative log-likelihood of ``gt`` under (mu, sigma), the
+    variance floored at 1e-6, optionally sin(phi)-weighted."""
+    var = torch.clamp(sigma ** 2, min=1e-6)
+    nll = 0.5 * (torch.log(var) + (gt - mu) ** 2 / var)
+    if sin_weighted:
+        h, w = mu.shape[1:3]
+        nll = nll * sin_phi_map(h, w, mu.device)[None, :, :, None]
+    if mask is not None:
+        return torch.sum(nll * mask) / (torch.sum(mask) + 1e-7)
+    return torch.mean(nll)
+
+
+def laplacian_nll_loss(mu: torch.Tensor, b_scale: torch.Tensor,
+                       gt: torch.Tensor,
+                       mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Laplacian negative log-likelihood, the scale floored at 1e-4."""
+    b_ = torch.clamp(b_scale, min=1e-4)
+    nll = torch.log(2 * b_) + torch.abs(gt - mu) / b_
+    if mask is not None:
+        return torch.sum(nll * mask) / (torch.sum(mask) + 1e-7)
+    return torch.mean(nll)

@@ -8,9 +8,17 @@ layout, which the port's modules use.
 * ``renderer_state_dict``: ``NeuralRayGenRenderer`` params, inverse of
   ``convert_renderer``;
 * ``unifuse_state_dict``: ``UniFuse`` params + batch_stats, inverse of
-  ``convert_unifuse``;
+  ``convert_unifuse`` (which leaves out the uncertainty head);
+* ``equi_depth_state_dict``: ``EquiDepth``, inverse of
+  ``convert_equi_depth`` (idem);
+* ``cube_depth_state_dict``: ``CubeDepth``, which has no converter in
+  the JAX package: its encoder is ``cube_encoder`` and its decoder has
+  ``EquiDepth``'s layout;
 * ``mvs_state_dict``: ``MVSDepthModel`` params + batch_stats, inverse of
-  ``convert_mvs``.
+  ``convert_mvs`` (with ``mvs_uncertainty`` the last head block has two
+  output channels under the same keys).
+
+Every uncertainty head (``uncert_head`` of the mono nets) is carried.
 
 Conv kernels (k..., I, O) become (O, I, k...), Dense kernels (in, out)
 become Linear weights (out, in), GroupNorm ``scale``/``bias`` become the
@@ -26,7 +34,9 @@ import torch
 from torch import nn
 
 from panogrf_tpu_torch.models.mvs import MVSDepthModel
-from panogrf_tpu_torch.models.unifuse import UNIFUSE_DECODER_ORDER, UniFuse
+from panogrf_tpu_torch.models.unifuse import (EQUI_DEPTH_DECODER_ORDER,
+                                              UNIFUSE_DECODER_ORDER,
+                                              CubeDepth, EquiDepth, UniFuse)
 
 _POOL_STACKS = ("ray_dir_fc", "neuray_fc", "base_fc", "vis_fc", "vis_fc2",
                 "geometry_fc", "rgb_fc")
@@ -103,6 +113,10 @@ class _StateDict(dict):
                 self.conv(f"{t}.{name}.0", p[name])
         else:
             self.conv(f"{t}.conv", p["Conv_0"])
+
+    def uncert_head(self, p: dict) -> None:
+        if "uncert_head" in p:
+            self.conv("uncert_head.conv", p["uncert_head"]["Conv_0"])
 
     def conv3d_block(self, key: str, p: dict) -> None:
         self.conv(f"{key}.conv1", p["WrapConv3D_0"]["Conv_0"])
@@ -221,9 +235,30 @@ def unifuse_state_dict(variables: dict) -> dict:
         kind = next(k for k in (f"CEELayer_{i}", f"Concat_{i}",
                                 f"BiProj_{i}") if k in p)
         sd.fusion(f"equi_decoder.{index[name]}", p[kind], s.get(kind))
-    if "uncert_head" in p:
-        sd.conv("uncert_head.conv", p["uncert_head"]["Conv_0"])
+    sd.uncert_head(p)
     return dict(sd)
+
+
+def _single_branch_state_dict(variables: dict, encoder: str) -> dict:
+    p, s = variables["params"], variables.get("batch_stats", {})
+    sd = _StateDict()
+    sd.resnet(encoder, p[encoder], s[encoder])
+    head = len(EQUI_DEPTH_DECODER_ORDER) - 1      # depthconv_0, last
+    for i in range(head):
+        sd.conv(f"equi_decoder.{i}.conv.conv", p[f"ConvELU_{i}"]["Conv_0"])
+    sd.conv(f"equi_decoder.{head}.conv", p["Conv3x3Head_0"]["Conv_0"])
+    sd.uncert_head(p)
+    return dict(sd)
+
+
+def equi_depth_state_dict(variables: dict) -> dict:
+    """The JAX ``EquiDepth``'s variables -> reference-layout state dict."""
+    return _single_branch_state_dict(variables, "equi_encoder")
+
+
+def cube_depth_state_dict(variables: dict) -> dict:
+    """The JAX ``CubeDepth``'s variables -> the port's state dict."""
+    return _single_branch_state_dict(variables, "cube_encoder")
 
 
 def mvs_state_dict(variables: dict) -> dict:
@@ -258,13 +293,15 @@ def mvs_state_dict(variables: dict) -> dict:
 
 def load_jax_params(model: nn.Module, params: dict) -> nn.Module:
     """Copy a JAX module's variables into the port ``model`` (a renderer,
-    ``UniFuse`` or ``MVSDepthModel``; every parameter and buffer must be
+    a mono net or ``MVSDepthModel``; every parameter and buffer must be
     matched); returns the model."""
-    if isinstance(model, UniFuse):
-        sd = unifuse_state_dict(params)
-    elif isinstance(model, MVSDepthModel):
-        sd = mvs_state_dict(params)
-    else:
+    converters = ((UniFuse, unifuse_state_dict),
+                  (EquiDepth, equi_depth_state_dict),
+                  (CubeDepth, cube_depth_state_dict),
+                  (MVSDepthModel, mvs_state_dict))
+    sd = next((fn(params) for cls, fn in converters
+               if isinstance(model, cls)), None)
+    if sd is None:
         sd = renderer_state_dict(params)
     model.load_state_dict(sd, strict=True)
     return model

@@ -46,12 +46,16 @@ def test_no_source_file_mentions_jax():
     pattern = re.compile(r"import jax|from jax|flax|panogrf_tpu\.")
     offenders = [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")
                  if pattern.search(p.read_text())]
-    assert len(_modules()) >= 41
-    # the depth stack's and the video slice's modules are among them
+    assert len(_modules()) >= 46
+    # the depth stack's, the video slice's and depth training's modules
+    # are among them
     assert {f"panogrf_tpu_torch.{m}" for m in (
         "core.cubemap", "nn.resnet", "nn.fusion", "models.unifuse",
         "models.mvs", "models.depth_stack", "ops.cost_volume",
-        "renderer.poses", "train.metrics", "tools.render")} <= set(_modules())
+        "renderer.poses", "train.metrics", "tools.render",
+        "train.depth_trainer", "train.losses", "utils.visualize",
+        "tools.train_mono", "tools.train_depth", "tools.eval_depth")} <= \
+        set(_modules())
     assert not offenders, offenders
 
 

@@ -279,3 +279,8 @@ def test_train_cli_validates_on_stack_depth(tmp_path, monkeypatch, capsys):
     assert all(np.isfinite(v) for m in vals for v in m.values())
     assert trainer.best_metric == max(m["psnr_nr"] for m in vals)
     assert (tmp_path / "data/model/gen_tiny/best/model.pth").exists()
+    # each validation writes gt|pred and depth images of both scenes
+    vis = sorted(p.stem for p in (tmp_path / "data/model/gen_tiny/vis")
+                 .iterdir())
+    assert vis == sorted(f"step{st:06d}-{vi}-{kind}" for st in (1, 2)
+                         for vi in (0, 1) for kind in ("gt_pred", "depth"))
