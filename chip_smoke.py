@@ -27,9 +27,14 @@ the wrapper's host cost, then drives the port's two paths at full width
   profile of one MVS step, one small step of each recipe on CUDA against
   the CPU, and ``eval_depth`` on the two checkpoints;
 * the composed pipeline: the render CLI at 512x1024 from the stack's
-  depth, an eval frame with its metrics and a 4-pose path at frame
-  batches of 2 and 1, and a 3-pose video group against its frames on the
-  card at 64x128.
+  depth (its MVS net from the depth-training checkpoint), an eval frame
+  with its metrics and a 4-pose path at frame batches of 2 and 1, and a
+  3-pose video group against its frames on the card at 64x128;
+* multi-view training and finetuning: the training CLI on the V = 4
+  recipe with and without the consistency loss, the ``train_ft`` CLI with
+  depth guidance from the 2-view checkpoint (6 steps each, the latter two
+  profiled), ``render_ft`` and ``render_mv`` frames at 512x1024, and a
+  consistency step and an ft step at 64x128 on CUDA against the CPU.
 
 Each path checks that it went through its kernels.  Each phase prints one
 JSON line; any failure raises, so the process exits non-zero.  The last
@@ -50,13 +55,16 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
+import yaml
 
 from panogrf_tpu_torch.core import cubemap
 from panogrf_tpu_torch.data import imgs_info
 from panogrf_tpu_torch.data.synthetic import (SphereScene,
+                                              make_multi_view_sample,
                                               make_three_view_sample)
 from panogrf_tpu_torch.models import depth_stack
 from panogrf_tpu_torch.models import mvs as tmvs
@@ -68,10 +76,14 @@ from panogrf_tpu_torch.renderer import full_render
 from panogrf_tpu_torch.renderer.presets import (PRESET_CHUNK,
                                                 PRESET_COARSE_LOWRES,
                                                 preset_kwargs)
+from panogrf_tpu_torch.renderer.ft_renderer import (NeuralRayFtRenderer,
+                                                    ft_depth_range_at_coords,
+                                                    init_ft_params_from_gen)
 from panogrf_tpu_torch.renderer.renderer import NeuralRayGenRenderer
 from panogrf_tpu_torch.tools import eval_depth, train_depth, train_mono
 from panogrf_tpu_torch.tools import render as render_tool
-from panogrf_tpu_torch.tools import train_renderer
+from panogrf_tpu_torch.tools import (render_ft, render_mv, train_ft,
+                                     train_renderer)
 from panogrf_tpu_torch.train import depth_trainer
 from panogrf_tpu_torch.train import trainer as trainer_mod
 
@@ -164,9 +176,10 @@ def _cuda_kernel_rows(prof) -> list:
             and not getattr(e, "is_user_annotation", False)]
 
 
-def profiler_time_ms(fn, iters: int = 50) -> float:
+def profiler_time_us(fn, iters: int = 50) -> float | None:
     """Mean device time per call as torch.profiler sums it: the duration
-    of the GPU kernels one call launches, without the gaps between them."""
+    of the GPU kernels one call launches, without the gaps between them;
+    None when the profiler recorded no kernel (not a time of 0)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -174,7 +187,8 @@ def profiler_time_ms(fn, iters: int = 50) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sum(r[1] for r in _cuda_kernel_rows(prof)) / iters / 1e3
+    rows = _cuda_kernel_rows(prof)
+    return sum(r[1] for r in rows) / iters if rows else None
 
 
 # ---------------------------------------------------------------------------
@@ -325,7 +339,7 @@ def time_kernel(name, n, dims, acts, dtype, seed) -> dict:
     for k in ("read_pass", "copy"):
         runs[k].append(event_time_ms(fns[k], 200) * 1e3)
     us = {k: statistics.mean(v) for k, v in runs.items()}
-    prof = {k: profiler_time_ms(fns[k]) * 1e3
+    prof = {k: profiler_time_us(fns[k])
             for k in ("kernel", "previous", "plain", "read_pass")}
     bound, bound_by, nbytes, flops = mlp_bound_ms(n, dims, dtype)
     row = {"shape": [n, *dims], "acts": list(acts),
@@ -354,6 +368,10 @@ REPLACES = {"mlp2": "panogrf_tpu/ops/pallas/fused_mlp.py:51",
             "mlp3": "panogrf_tpu/ops/pallas/fused_mlp.py:146"}
 
 
+def us_to_ms(us: float | None) -> float | None:
+    return None if us is None else us / 1e3
+
+
 def check_and_time(name: str) -> dict:
     """``check_kernel``, then ``time_kernel`` at each timed shape; the
     kernel-table row of ``name``, its main numbers from the first shape.
@@ -380,8 +398,9 @@ def check_and_time(name: str) -> dict:
             "previous_us": t["previous_us"], "read_pass_us": t["read_pass_us"],
             "host_us_per_call": t["host_us_per_call"],
             "kernel_us": t["us"], "plain_us": t["plain_us"],
-            "bound_us": t["bound_us"], "profiler_ms": t["profiler_us"] / 1e3,
-            "plain_profiler_ms": t["plain_profiler_us"] / 1e3,
+            "bound_us": t["bound_us"],
+            "profiler_ms": us_to_ms(t["profiler_us"]),
+            "plain_profiler_ms": us_to_ms(t["plain_profiler_us"]),
             "shape": t["shape"], "dtype": t["dtype"],
             "times": [{k: v for k, v in r.items() if k != "runs_us"}
                       for r in times]}
@@ -621,17 +640,18 @@ def cuda_vs_cpu() -> None:
 TRAIN_STEPS = 6          # 1 warm-up + 5 timed
 
 
-def train_full_width() -> tuple:
-    """The training CLI, in process, on the 2-view 512x1024 recipe at full
-    width (64 + 64 samples, 512 rays a step, render + depth losses,
-    exp-decay lr, float32) over a pool of 2 scenes rendered on the card:
-    ``train_renderer.build``, ``fit`` and ``save``, as its ``main`` runs
-    them, with the initial weights kept between build and fit.  Asserts
-    finite losses, that every parameter moved and the mlp2 launches per
-    step (one ``out_geometry_fc`` launch per pass: coarse and fine).
-    Returns (mlp2 launches per step, mlp3 launches over all steps)."""
-    argv = ["--cfg", TRAIN_CFG, "--steps", str(TRAIN_STEPS), "--pool", "2",
-            "--log-interval", "1"]
+def timed_training(phase: str, build, fit, params, finish,
+                   meta: dict) -> tuple:
+    """A trainer from ``build(on_step)``, ``fit(trainer)`` of TRAIN_STEPS
+    steps, then ``finish(trainer)`` (save, validate; its dict joins the
+    phase's line).  ms/step is the median of the CUDA-event intervals
+    between consecutive step ends; ``peak_mem_bytes`` is the peak of the
+    steps alone, ``build_peak_mem_bytes`` that of the build (which renders
+    the scenes on the card).  Asserts finite losses, that every tensor of
+    ``params(trainer)`` ((name, tensor) pairs, kept between build and fit)
+    moved and the mlp2 launches per step (one ``out_geometry_fc`` launch
+    per pass: coarse and fine), all ``lanes``.  ``meta`` describes the
+    recipe in the phase's line.  Returns (trainer, row, steps)."""
     steps = []
 
     def on_step(step, metrics):
@@ -648,70 +668,117 @@ def train_full_width() -> tuple:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    trainer, stream, num_steps = train_renderer.build(
-        train_renderer.parse_args(argv), on_step)
-    init = {k: v.clone() for k, v in trainer.model.state_dict().items()}
-    fused_mlp.reset_launches()
-    trainer.fit(stream, num_steps, key_metric="psnr_nr")
-    trainer.save("latest")
-    total_s = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    after = trainer.model.state_dict()
+    trainer = build(on_step)
+    init = {k: v.detach().clone() for k, v in params(trainer)}
     torch.cuda.synchronize()
+    build_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fused_mlp.reset_launches()
+    fit(trainer)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    extra = finish(trainer)
+    total_s = time.perf_counter() - t0
+    still = [k for k, v in params(trainer) if torch.equal(v.detach(), init[k])]
     dev_ms = [a["ev"].elapsed_time(b["ev"]) for a, b in zip(steps, steps[1:])]
     host_ms = [(b["t"] - a["t"]) * 1e3 for a, b in zip(steps, steps[1:])]
     launches = [s["mlp2_launches"] for s in steps]
-    launches3 = [s["mlp3_launches"] for s in steps]
-    still = [k for k in init if torch.equal(init[k], after[k])]
     losses = [s["loss"] for s in steps]
-    emit({"phase": "train", "cfg": TRAIN_CFG, "hw": [H, W],
-          "depth_hw": [DH, DW], "samples": [64, 64], "rays": 512,
-          "dtype": "float32", "steps": len(steps), "losses": losses,
-          "terms_last": steps[-1]["terms"] if steps else None,
-          "ms_per_step": statistics.median(dev_ms) if dev_ms else None,
-          "ms_per_step_runs": dev_ms, "host_ms_runs": host_ms,
-          "host_ms_per_step": statistics.median(host_ms) if host_ms
-          else None, "cli_seconds": total_s, "peak_mem_bytes": peak,
-          "mlp2_launches_per_step": launches,
-          "mlp3_launches_per_step": launches3,
-          "variant_launches_per_step": [s["variants"] for s in steps],
-          "params_moved": len(init) - len(still), "params": len(init),
-          "params_unchanged": still})
+    row = {"phase": phase, **meta, "dtype": "float32", "steps": len(steps),
+           "losses": losses,
+           "terms_last": steps[-1]["terms"] if steps else None,
+           "ms_per_step": statistics.median(dev_ms) if dev_ms else None,
+           "ms_per_step_runs": dev_ms, "host_ms_runs": host_ms,
+           "host_ms_per_step": statistics.median(host_ms) if host_ms
+           else None, "cli_seconds": total_s, "peak_mem_bytes": peak,
+           "build_peak_mem_bytes": build_peak,
+           "mlp2_launches_per_step": launches,
+           "mlp3_launches_per_step": [s["mlp3_launches"] for s in steps],
+           "variant_launches_per_step": [s["variants"] for s in steps],
+           "params_moved": len(init) - len(still), "params": len(init),
+           "params_unchanged": still, **extra}
+    emit(row)
     if len(steps) != TRAIN_STEPS or not all(np.isfinite(losses)):
-        raise AssertionError(f"train: losses {losses}")
+        raise AssertionError(f"{phase}: losses {losses}")
     if still:
-        raise AssertionError(f"train: parameters unchanged after "
+        raise AssertionError(f"{phase}: parameters unchanged after "
                              f"{TRAIN_STEPS} steps: {still}")
     if launches != [2] * TRAIN_STEPS:
-        raise AssertionError(f"train: mlp2 launches per step {launches}, "
+        raise AssertionError(f"{phase}: mlp2 launches per step {launches}, "
                              f"expected 2 (coarse and fine out_geometry_fc)")
     for s in steps:
-        assert_specialised(f"train step {s['step']}", s["mlp2_launches"],
+        assert_specialised(f"{phase} step {s['step']}", s["mlp2_launches"],
                            s["variants"])
-    profile_train_step(trainer, stream)
-    return launches[-1], sum(launches3)
+    return trainer, row, steps
 
 
-def profile_train_step(trainer, stream) -> None:
-    """Device time by kernel over one more training step of the same
-    trainer and batch stream (torch.profiler), and the share of the step
-    the device was busy."""
+def train_cli(phase: str, argv: list, meta: dict) -> tuple:
+    """The training CLI, in process, on ``argv``: ``train_renderer.build``,
+    ``fit`` and ``save``, as its ``main`` runs them, through
+    ``timed_training``.  Returns (trainer, batch stream, row, steps)."""
+    argv = argv + ["--steps", str(TRAIN_STEPS), "--log-interval", "1"]
+    built = {}
+
+    def build(on_step):
+        trainer, built["stream"], built["steps"] = train_renderer.build(
+            train_renderer.parse_args(argv), on_step)
+        return trainer
+
+    trainer, row, steps = timed_training(
+        phase, build,
+        lambda t: t.fit(built["stream"], built["steps"],
+                        key_metric="psnr_nr"),
+        lambda t: t.model.state_dict().items(),
+        lambda t: {"checkpoint": str(t.save("latest"))}, meta)
+    return trainer, built["stream"], row, steps
+
+
+def train_full_width() -> tuple:
+    """The training CLI on the 2-view 512x1024 recipe at full width (64 +
+    64 samples, 512 rays a step, render + depth losses, exp-decay lr,
+    float32) over a pool of 2 scenes rendered on the card (``train_cli``),
+    then a profile of one more step.  Returns (mlp2 launches per step,
+    mlp3 launches over all steps, the checkpoint)."""
+    trainer, stream, row, _ = train_cli(
+        "train", ["--cfg", TRAIN_CFG, "--pool", "2"],
+        {"cfg": TRAIN_CFG, "hw": [H, W], "depth_hw": [DH, DW],
+         "samples": [64, 64], "rays": 512})
+    profile_train_step(lambda: trainer.fit(stream, 1))
+    return (row["mlp2_launches_per_step"][-1],
+            sum(row["mlp3_launches_per_step"]), trainer.ckpt_path("latest"))
+
+
+def profile_train_step(step_once, phase: str = "train_profile") -> None:
+    """Device time by kernel over one more training step, ``step_once()``
+    (torch.profiler), and the share of the step the device was busy."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.fit(stream, 1)
+        step_once()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = _cuda_kernel_rows(prof)
     busy = sum(r[1] for r in rows)
     rows.sort(key=lambda r: -r[1])
-    emit({"phase": "train_profile", "what": "one training step",
+    emit({"phase": phase, "what": "one training step",
           "wall_us": wall_us, "device_busy_us": busy,
           "device_busy_share": busy / wall_us,
           "kernels": sum(r[2] for r in rows),
           "top_kernels": [{"kernel": k[:80], "us": t, "count": c}
                           for k, t, c in rows[:10]]})
+
+
+def grad_limit_shares(grads_c: dict, grads_p: dict) -> tuple:
+    """({parameter: its CUDA gradient's largest error against the CPU one,
+    as a share of 1e-3 of the CPU gradient's largest element plus a
+    floor}, the floor).  A parameter whose exact gradient is 0 (a conv bias
+    in front of an instance norm) gets rounding noise on both sides: the
+    floor is 1e-6 x the largest gradient of the tree."""
+    floor = 1e-6 * max(g.abs().max().item() for g in grads_p.values())
+    return {n: (grads_c[n] - grads_p[n]).abs().max().item()
+            / (1e-3 * grads_p[n].abs().max().item() + floor)
+            for n in grads_p}, floor
 
 
 def train_cuda_vs_cpu() -> None:
@@ -758,13 +825,7 @@ def train_cuda_vs_cpu() -> None:
                            {n: p.grad.detach().cpu()
                             for n, p in model.named_parameters()}, launches)
     (loss_c, grads_c, launches), (loss_p, grads_p, _) = results.values()
-    # a parameter whose exact gradient is 0 (a conv bias in front of an
-    # instance norm) gets rounding noise on both sides: the limit has a
-    # floor of 1e-6 x the largest gradient of the tree
-    floor = 1e-6 * max(g.abs().max().item() for g in grads_p.values())
-    share = {n: (grads_c[n] - grads_p[n]).abs().max().item()
-             / (1e-3 * grads_p[n].abs().max().item() + floor)
-             for n in grads_p}
+    share, floor = grad_limit_shares(grads_c, grads_p)
     bad = [n for n, s in share.items() if s > 1]
     worst = sorted(share.items(), key=lambda kv: -kv[1])[:5]
     loss_rel = abs(loss_c - loss_p) / abs(loss_p)
@@ -1173,19 +1234,33 @@ def depth_eval(mono_ckpt, mvs_ckpt) -> None:
 RENDER_OUT = "data/chip_smoke_render"
 
 
-def render_cli() -> dict:
+def random_mvs_ckpt() -> Path:
+    """A seeded MVS net (the stack's default configuration) saved in the
+    reference layout, for ``render_cli`` when the depth-training group
+    writes no MVS checkpoint."""
+    mvs = tmvs.MVSDepthModel()
+    tblocks.init_parameters_(mvs, torch.Generator().manual_seed(0))
+    path = Path(RENDER_OUT) / "random_mvs.pth"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({"model_state_dict": mvs.state_dict()}, path)
+    return path
+
+
+def render_cli(mvs_ckpt) -> dict:
     """The render CLI (``tools.render.main``) at 512x1024 under the
     serving preset at 4096-ray chunks, reference depth from the depth
-    stack (random weights): one eval frame with its metrics, then a path
-    of 4 poses at a frame batch of 2 and of 1.  Asserts the mlp2 launches:
-    an eval frame 160, a 2-pose group as many as one frame, all ``lanes``;
-    mlp3 none.  Returns the launches per path."""
+    stack with the MVS net of ``mvs_ckpt`` (the depth-training group's, or
+    ``random_mvs_ckpt``'s): one eval frame with its metrics, then a path
+    of 4 poses at a frame batch of 2 and of 1.  Asserts that the stack
+    ran the MVS net and the mlp2 launches: an eval frame 160, a 2-pose
+    group as many as one frame, all ``lanes``; mlp3 none.  Returns the
+    launches per path."""
     chunk = 4096
     per_frame = H * W // chunk + (H // 2) * (W // 2) // chunk
     argv = ["--height", str(H), "--width", str(W), "--depth-height", str(DH),
-            "--depth-width", str(DW), "--depth-stack", "--preset", "serving",
-            "--chunk", str(chunk), "--num", "1", "--no-skip", "--out",
-            RENDER_OUT]
+            "--depth-width", str(DW), "--depth-stack", "--mvs-ckpt",
+            str(mvs_ckpt), "--preset", "serving", "--chunk", str(chunk),
+            "--num", "1", "--no-skip", "--out", RENDER_OUT]
     runs = {"eval": ([], 1), "inter_b2": (["--pose-type", "inter",
                                            "--inter-num", "4",
                                            "--frame-batch", "2"], 2),
@@ -1204,6 +1279,7 @@ def render_cli() -> dict:
                "mlp2_launches": count, "mlp2_launches_per_group":
                    count / passes, "mlp3_launches": count3,
                "variant_launches": variants, "cli_seconds": seconds,
+               "depth_stack": summary["depth_stack"],
                "stack_seconds": summary["stack_seconds"]}
         if name == "eval":
             row.update(summary["mean"])
@@ -1212,7 +1288,7 @@ def render_cli() -> dict:
             row.update(summary["videos"][0])
             ok = summary["videos"][0]["frames"] == 4
         emit(row)
-        if not ok:
+        if not ok or summary["depth_stack"]["mvs"] != str(mvs_ckpt):
             raise AssertionError(f"render_cli {name}: {summary}")
         if count != passes * per_frame or count3:
             raise AssertionError(f"render_cli {name}: mlp2 launched {count}"
@@ -1258,8 +1334,272 @@ def video_cuda() -> None:
                              f" vs {frame_launches} per frame")
 
 
+# ---------------------------------------------------------------------------
+# multi-view training, the consistency loss and per-scene finetuning
+# ---------------------------------------------------------------------------
+
+MV_CFG = ("configs/gen/"
+          "neuray_gen_cv_erp_mono_stereo_uniform_512x1024_mv_v4.yaml")
+FT_CFG = "configs/ft/neuray_ft_cv_m3d_diff_mono_uniform.yaml"
+MV_RUNS = "data/chip_smoke_mv"
+
+
+def train_mv() -> tuple:
+    """The training CLI (``train_cli``) on the V = 4 recipe of ``MV_CFG``
+    (512x1024, depth 256x512, references [0, 1, 2], query 3, 512 rays,
+    64 + 64 samples, render + depth losses, float32) over a pool of 2
+    four-view scenes, then the same recipe with the consistency loss
+    (``use_self_hit_prob``, losses render + depth + consistency; no
+    shipped config turns it on, so a derived yaml is written under
+    MV_RUNS), which encodes the query view too, and a profile of one
+    more step of that recipe.  Asserts finite
+    consistency terms of both passes at every step.  Returns ({phase: mlp2
+    launches per step}, mlp3 launches, the V = 4 run's checkpoint)."""
+    meta = {"cfg": MV_CFG, "hw": [H, W], "depth_hw": [DH, DW],
+            "samples": [64, 64], "rays": 512, "views": 4,
+            "refs": [0, 1, 2], "query": [3]}
+    trainer, _, row_mv, _ = train_cli(
+        "train_mv", ["--cfg", MV_CFG, "--pool", "2"], meta)
+    ckpt = trainer.ckpt_path("latest")
+    del trainer
+    cfg = yaml.safe_load(Path(MV_CFG).read_text())
+    cfg.update(name="chip_smoke_mv_consistency", use_self_hit_prob=True,
+               loss=["render", "depth", "consistency"])
+    path = Path(MV_RUNS) / "mv_v4_consistency.yaml"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(yaml.safe_dump(cfg))
+    trainer, stream, row_c, steps = train_cli(
+        "train_consistency", ["--cfg", str(path), "--pool", "2"],
+        {**meta, "cfg": str(path), "losses": cfg["loss"]})
+    profile_train_step(lambda: trainer.fit(stream, 1),
+                       "train_consistency_profile")
+    prob = [[s["terms"].get(k) for k in ("loss_prob", "loss_prob_fine")]
+            for s in steps]
+    if not all(v is not None and np.isfinite(v) for p in prob for v in p):
+        raise AssertionError(f"train_consistency: loss_prob terms {prob}")
+    rows = {"train_mv": row_mv, "train_consistency": row_c}
+    return ({k: r["mlp2_launches_per_step"][-1] for k, r in rows.items()},
+            sum(sum(r["mlp3_launches_per_step"]) for r in rows.values()),
+            ckpt)
+
+
+def train_ft_full_width(gen_ckpt) -> tuple:
+    """The ``train_ft`` CLI on ``FT_CFG`` (512x1024, depth 256x512, ray
+    features 64x128 per view, 512 rays, 64 + 64 samples, render loss,
+    Adam at 1e-2 on the ray features and 1e-4 on the rest) with depth
+    guidance, from the training group's gen checkpoint, or from a seeded
+    gen renderer saved here when that group did not run: ``FtTrainer``,
+    ``fit`` of TRAIN_STEPS steps, ``validate`` and ``save``, as its
+    ``main`` runs them, through ``timed_training`` (so every parameter,
+    the ray features and the network's weights, must move).  Asserts too
+    a finite validation MSE and the two groups' learning rates; then
+    profiles one more step.  Returns (mlp2 launches per step, mlp3
+    launches, the ft checkpoint)."""
+    if gen_ckpt is None:
+        gen = NeuralRayGenRenderer(height=H, width=W, depth_hw=(DH, DW),
+                                   device="cuda",
+                                   generator=torch.Generator().manual_seed(0))
+        gen_ckpt = Path(MV_RUNS) / "gen_seeded" / "model.pth"
+        gen_ckpt.parent.mkdir(parents=True, exist_ok=True)
+        torch.save({"network_state_dict": gen.state_dict()}, gen_ckpt)
+        del gen
+    argv = ["--cfg", FT_CFG, "--gen-ckpt", str(gen_ckpt), "--steps",
+            str(TRAIN_STEPS), "--depth-guided", "--log-interval", "1",
+            "--name", "chip_smoke_ft", "--device", "cuda"]
+    args = train_ft.parse_args(argv)
+    trainer, row, _ = timed_training(
+        "train_ft", lambda on_step: train_ft.FtTrainer(args, on_step),
+        lambda t: t.fit(args.steps), lambda t: t.model.named_parameters(),
+        lambda t: {"val": t.validate(), "checkpoint": str(t.save()),
+                   "lr_groups": [g["lr"] for g in t.opt.param_groups],
+                   "ray_feats": list(t.model.ray_feats_maps().shape)},
+        {"cfg": FT_CFG, "hw": [H, W], "depth_hw": [DH, DW],
+         "samples": [64, 64], "rays": args.rays, "depth_guided": True})
+    if not np.isfinite(row["val"]["mse"]):
+        raise AssertionError(f"train_ft: val {row['val']}")
+    lrs = row["lr_groups"]
+    if lrs != [args.lr_ray_feats, args.lr] or lrs != [1e-2, 1e-4]:
+        raise AssertionError(f"train_ft: learning rates {lrs}")
+    profile_train_step(lambda: trainer.fit(1), "train_ft_profile")
+    return (row["mlp2_launches_per_step"][-1],
+            sum(row["mlp3_launches_per_step"]), Path(row["checkpoint"]))
+
+
+RENDER_FT_OUT = "data/chip_smoke_render_ft"
+RENDER_MV_OUT = "data/chip_smoke_render_mv"
+
+
+def render_cli_runs(phase: str, tool, argv: list, runs: dict) -> tuple:
+    """``tool.main`` on ``argv`` plus each run's flags at 4096-ray chunks,
+    ``runs`` = {name: (flags, frames)}: the metrics (finite) or the path's
+    frame count, s/frame, and exactly 2 mlp2 launches per chunk pass (the
+    coarse and fine ``out_geometry_fc``), 256 per 512x1024 frame, all
+    ``lanes``.  Returns ({run: mlp2 launches}, mlp3 launches)."""
+    per_frame = 2 * (H * W // 4096)
+    counts, mlp3 = {}, 0
+    for name, (extra, frames) in runs.items():
+        fused_mlp.reset_launches()
+        t0 = time.perf_counter()
+        summary = tool.main(argv + ["--chunk", "4096"] + extra)
+        seconds = time.perf_counter() - t0
+        count, count3 = fused_mlp.MLP2_LAUNCHES, fused_mlp.MLP3_LAUNCHES
+        variants = dict(fused_mlp.VARIANT_LAUNCHES)
+        metrics = summary.get("mean", summary)
+        emit({"phase": phase, "run": name, "hw": [H, W], "chunk": 4096,
+              "frames": frames, "mlp2_launches": count,
+              "mlp3_launches": count3, "variant_launches": variants,
+              "cli_seconds": seconds, **metrics})
+        if not all(np.isfinite(v) for v in metrics.values()) or \
+                metrics.get("frames", frames) != frames:
+            raise AssertionError(f"{phase} {name}: {summary}")
+        if count != frames * per_frame or count3:
+            raise AssertionError(f"{phase} {name}: mlp2 launched {count} "
+                                 f"times, expected {frames} x {per_frame};"
+                                 f" mlp3 {count3}")
+        assert_specialised(f"{phase} {name}", count, variants)
+        counts[name] = count
+        mlp3 += count3
+    return counts, mlp3
+
+
+def render_ft_cli(ft_ckpt) -> tuple:
+    """``tools.render_ft`` at 512x1024 from the ft checkpoint: the held-out
+    view's eval frame, then a 3-pose path."""
+    argv = ["--ckpt", str(ft_ckpt), "--height", str(H), "--width", str(W),
+            "--out", RENDER_FT_OUT, "--device", "cuda"]
+    return render_cli_runs("render_ft", render_ft, argv, {
+        "eval": ([], 1),
+        "inter": (["--pose-type", "inter", "--inter-num", "3"], 3)})
+
+
+def render_mv_cli(ckpt) -> tuple:
+    """``tools.render_mv`` at 512x1024 (depth 256x512) from the V = 4 run's
+    checkpoint: one frame of a V = 5 scene, the middle view from the 4
+    others."""
+    argv = ["--ckpt", str(ckpt), "--views", "5", "--que-idx", "2", "--num",
+            "1", "--height", str(H), "--width", str(W), "--depth-height",
+            str(DH), "--depth-width", str(DW), "--out", RENDER_MV_OUT,
+            "--device", "cuda"]
+    return render_cli_runs("render_mv", render_mv, argv, {"eval": ([], 1)})
+
+
+def off_seam_coords(rng, n: int, h: int, w: int) -> torch.Tensor:
+    """(1, n, 2) random pixel coords off the border and the middle column:
+    the multi-view and 3-view scenes put their cameras on one axis, so a
+    ray there has points on another view's longitude seam (see
+    ``train_cuda_vs_cpu``)."""
+    xs = rng.choice([x for x in range(1, w - 1) if abs(x - w // 2) > 1],
+                    size=n)
+    ys = rng.integers(1, h - 1, size=n)
+    return torch.as_tensor(np.stack([xs, ys], -1)[None], dtype=torch.float32)
+
+
+def _mv_step(device: str, sample: dict, coords) -> tuple:
+    """One V = 4 consistency step at 64x128 on ``device``: (loss, grads,
+    mlp2 launches, launches by variant)."""
+    h, w, dh, dw, dn = 64, 128, 32, 64, 32
+    model = NeuralRayGenRenderer(
+        height=h, width=w, depth_hw=(dh, dw), depth_sample_num=dn,
+        fine_depth_sample_num=dn, gather_depth_major=True,
+        use_self_hit_prob=True, device=device,
+        generator=torch.Generator().manual_seed(7))
+    s = {k: v.to(device) for k, v in sample.items()}
+    data = imgs_info.build_render_sample_mv(s, coords.to(device), [0, 1, 2],
+                                            3)
+    data["ref_imgs_info"]["mvs_depth"] = resize_linear(
+        s["depth_panos"][[0, 1, 2]], (dh, dw), axes=(1, 2))
+    data["que_imgs_info"]["mvs_depth"] = resize_linear(
+        s["depth_panos"][[3]], (dh, dw), axes=(1, 2))
+    cfg = trainer_mod.TrainerConfig(
+        losses=("render", "depth", "consistency"), seed=7)
+    opt, schedule = trainer_mod.make_optimizer(cfg, model.parameters())
+    step = trainer_mod.make_train_step(lambda b, g: model(b, g), cfg, opt,
+                                       schedule)
+    fused_mlp.reset_launches()
+    metrics = step(data, torch.Generator().manual_seed(7), 0)
+    return (float(metrics["loss"]), {n: p.grad.detach().cpu() for n, p in
+                                     model.named_parameters()},
+            fused_mlp.MLP2_LAUNCHES, dict(fused_mlp.VARIANT_LAUNCHES))
+
+
+def _ft_step(device: str, ft_state: dict, batch: dict) -> tuple:
+    """One depth-guided ft step at 64x128 on ``device`` from ``ft_state``:
+    (loss, grads, mlp2 launches, launches by variant)."""
+    model = NeuralRayFtRenderer(rfn=2, ray_feats_hw=(8, 16), height=64,
+                                width=128, depth_sample_num=32,
+                                fine_depth_sample_num=32, device=device)
+    model.load_state_dict(ft_state)
+    opt = train_ft.make_optimizer(model, 1e-4, 1e-2)
+    b = {k: {n: t.to(device) for n, t in v.items()} for k, v in batch.items()}
+    fused_mlp.reset_launches()
+    loss = train_ft.ft_step(model, opt, b, torch.Generator().manual_seed(9))
+    return (float(loss), {n: p.grad.detach().cpu() for n, p in
+                          model.named_parameters()},
+            fused_mlp.MLP2_LAUNCHES, dict(fused_mlp.VARIANT_LAUNCHES))
+
+
+def mv_ft_cuda_vs_cpu() -> None:
+    """At 64x128 (depth 32x64, 32 + 32 samples, 512 rays off the seams),
+    CUDA through the kernels against the CPU through the plain versions,
+    same inputs, weights and sampling draws: one V = 4 training step with
+    the consistency loss, and one depth-guided ft step (the ft renderer
+    initialised on the CPU from a seeded gen renderer, the query a
+    reference view, sigma 0.3).  The limits of ``train_cuda_vs_cpu``: loss
+    within 1e-4 relative, each gradient within 1e-3 of its scale (plus the
+    floor); 2 mlp2 launches on CUDA, all ``lanes``."""
+    h, w, dh, dw = 64, 128, 32, 64
+    rng = np.random.default_rng(7)
+    sample = make_multi_view_sample(SphereScene.random(7), h, w, 4, 0.25,
+                                    seed=7)
+    coords = off_seam_coords(rng, 512, h, w)
+    runs = {"mv_consistency": {d: _mv_step(d, sample, coords)
+                               for d in ("cuda", "cpu")}}
+
+    s3 = make_three_view_sample(SphereScene.random(9), h, w, 0.5, seed=9)
+    gen = NeuralRayGenRenderer(height=h, width=w, depth_hw=(dh, dw),
+                               depth_sample_num=32, fine_depth_sample_num=32,
+                               device="cpu",
+                               generator=torch.Generator().manual_seed(9))
+    ft = NeuralRayFtRenderer(rfn=2, ray_feats_hw=(dh // 4, dw // 4),
+                             height=h, width=w, device="cpu")
+    data = imgs_info.build_render_sample(s3, coords, src_for_mvs=False)
+    data["ref_imgs_info"]["mvs_depth"] = resize_linear(
+        s3["depth_panos"][list(imgs_info.REF_IDS)], (dh, dw), axes=(1, 2))
+    cache = init_ft_params_from_gen(ft, gen, data["ref_imgs_info"])
+    c2w = imgs_info.c2w_from_w2c(imgs_info.pose_w2c(s3["rots"], s3["trans"]))
+    batch = {"ref_imgs_info": {k: data["ref_imgs_info"][k] for k in
+                               ("imgs", "w2c", "depth_range")},
+             "que_imgs_info": {
+                 "coords": coords, "c2w": c2w[0],
+                 "depth_range": data["que_imgs_info"]["depth_range"],
+                 "imgs": s3["rgb_panos"][:1],
+                 "ft_depth_range": ft_depth_range_at_coords(
+                     cache, 0, coords, h, w, 0.3)}}
+    state = ft.state_dict()
+    runs["ft_guided"] = {d: _ft_step(d, state, batch)
+                         for d in ("cuda", "cpu")}
+    for name, r in runs.items():
+        (loss_c, grads_c, launches, variants), (loss_p, grads_p, _, _) = \
+            r["cuda"], r["cpu"]
+        share, floor = grad_limit_shares(grads_c, grads_p)
+        bad = [n for n, v in share.items() if v > 1]
+        loss_rel = abs(loss_c - loss_p) / abs(loss_p)
+        emit({"phase": "mv_ft_cuda_vs_cpu", "step": name, "hw": [h, w],
+              "depth_hw": [dh, dw], "samples": [32, 32], "rays": 512,
+              "dtype": "float32", "loss_cuda": loss_c, "loss_cpu": loss_p,
+              "loss_rel_err": loss_rel, "mlp2_launches_cuda": launches,
+              "params": len(grads_p), "grad_worst_limit_share": sorted(
+                  share.items(), key=lambda kv: -kv[1])[:5],
+              "grad_abs_floor": floor, "params_over_limit": bad})
+        assert_specialised(f"mv_ft_cuda_vs_cpu {name}", launches, variants)
+        if launches != 2 or not loss_rel <= 1e-4 or bad:
+            raise AssertionError(f"mv_ft_cuda_vs_cpu {name}: loss rel "
+                                 f"{loss_rel}, launches {launches}, over "
+                                 f"limit {bad}")
+
+
 PHASES = ("kernels", "serving", "training", "depth_stack",
-          "depth_training", "render_cli", "video")
+          "depth_training", "render_cli", "video", "mv_ft")
 
 
 def main(argv=None) -> int:
@@ -1294,8 +1634,10 @@ def main(argv=None) -> int:
         row["launches_turbo"] = launches["turbo"]
         row3["launches"] += mlp3_serving
         cuda_vs_cpu()
+    gen_ckpt = mvs_ckpt = None
     if "training" in phases:
-        row["launches_train_per_step"], mlp3_train = train_full_width()
+        row["launches_train_per_step"], mlp3_train, gen_ckpt = \
+            train_full_width()
         row3["launches"] += mlp3_train
         train_cuda_vs_cpu()
     if "depth_stack" in phases:
@@ -1308,13 +1650,27 @@ def main(argv=None) -> int:
         row3["launches"] += runs["mlp3"]
         depth_train_cuda_vs_cpu()
         depth_eval(runs["mono_ckpt"], runs["mvs_ckpt"])
+        mvs_ckpt = runs["mvs_ckpt"]
     if "render_cli" in phases:
-        cli = render_cli()
+        cli = render_cli(mvs_ckpt or random_mvs_ckpt())
         row["launches_render_cli_eval"] = cli["eval"]
         row["launches_render_cli_path_b2"] = cli["inter_b2"]
         row["launches_render_cli_path_b1"] = cli["inter_b1"]
     if "video" in phases:
         video_cuda()
+    if "mv_ft" in phases:
+        mv, mlp3_mv, mv_ckpt = train_mv()
+        row["launches_train_mv_per_step"] = mv["train_mv"]
+        row["launches_train_consistency_per_step"] = mv["train_consistency"]
+        row["launches_train_ft_per_step"], mlp3_ft, ft_ckpt = \
+            train_ft_full_width(gen_ckpt)
+        ft_renders, mlp3_rft = render_ft_cli(ft_ckpt)
+        row["launches_render_ft"] = ft_renders["eval"]
+        row["launches_render_ft_path"] = ft_renders["inter"]
+        mv_renders, mlp3_rmv = render_mv_cli(mv_ckpt)
+        row["launches_render_mv"] = mv_renders["eval"]
+        row3["launches"] += mlp3_mv + mlp3_ft + mlp3_rft + mlp3_rmv
+        mv_ft_cuda_vs_cpu()
     # no path of either package calls mlp3: the main paths launch it 0 times
     # (render_cli asserts its own 0)
     if row3["launches"] != 0:

@@ -2,7 +2,8 @@
 
 Port of ``panogrf_tpu/data/imgs_info.py``: dict-of-tensor samples of the
 3-view protocol (query view 1, reference views [0, 2], each reference's
-MVS source the other reference) and the 512 random training rays drawn
+MVS source the other reference), of the multi-view protocol (any
+reference set and one query view) and the 512 random training rays drawn
 with numpy, as the JAX package draws them.  Channel-last; poses are (3, 4)
 world-to-camera.
 """
@@ -91,3 +92,17 @@ def build_render_sample(sample: dict, coords: torch.Tensor,
                                                 render_depth_range,
                                                 with_depth=False)
     return data
+
+
+def build_render_sample_mv(sample: dict, coords: torch.Tensor, ref_ids,
+                           que_id: int,
+                           render_depth_range=(0.5, 15.0)) -> dict:
+    """Multi-view variant of ``build_render_sample``: the references
+    ``ref_ids`` and the query ``que_id`` of a V-view sample; no
+    ``src_imgs_info`` (each reference's MVS source is the next reference,
+    cyclically).  The references' ``mvs_depth`` is attached afterwards."""
+    ref_info = build_imgs_info(sample, ref_ids, render_depth_range)
+    que_info = build_imgs_info(sample, [que_id], render_depth_range)
+    que_info["c2w"] = c2w_from_w2c(que_info.pop("w2c"))[0]
+    que_info["coords"] = coords
+    return {"ref_imgs_info": ref_info, "que_imgs_info": que_info}

@@ -65,17 +65,18 @@ def depth2inv_dists(depth: torch.Tensor,
 def sample_fine_depth(depth: torch.Tensor, hit_prob: torch.Tensor,
                       depth_range: torch.Tensor, fdn: int,
                       inv_mode: bool = True,
-                      generator: torch.Generator | None = None
-                      ) -> torch.Tensor:
-    """Hierarchical inverse-CDF sampling at evenly spaced u, or at random
-    u from ``generator``.
+                      generator: torch.Generator | None = None,
+                      u: torch.Tensor | None = None) -> torch.Tensor:
+    """Hierarchical inverse-CDF sampling at evenly spaced u, at random u
+    from ``generator``, or at given (qn, rn, fdn) draws ``u`` (the ft
+    renderer hands the same draws to its depth-guided samples).
 
     The inverse CDF is the JAX package's summation form,
     F^-1(u) = bins[0] + sum_j (bins[j+1]-bins[j]) *
     clip((u-cdf[j]) / (cdf[j+1]-cdf[j]), 0, 1),
     not ``searchsorted``, so the two give the same samples.
-    :return: (qn, rn, fdn) fine depths, sorted unless ``generator`` is
-        given.
+    :return: (qn, rn, fdn) fine depths, sorted unless ``generator`` or
+        ``u`` is given.
     """
     if inv_mode:
         near = -1.0 / depth_range[0, 0]
@@ -87,10 +88,10 @@ def sample_fine_depth(depth: torch.Tensor, hit_prob: torch.Tensor,
     pdf = pdf / torch.sum(pdf, -1, keepdim=True)
     cdf = torch.cumsum(pdf, -1)
     cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], -1)
-    if generator is None:
+    if u is None and generator is None:
         u = (torch.arange(fdn, dtype=torch.float32, device=depth.device)
              + 0.5) / fdn
-    else:
+    elif u is None:
         u = uniform(generator, (*cdf.shape[:-1], fdn), depth.device)
     bin_w = bins[..., 1:] - bins[..., :-1]
     cdf0 = cdf[..., :-1]
@@ -182,7 +183,9 @@ def project_points_dict(ref_data: dict, que_pts: torch.Tensor,
     fetches one row of the full-res [rgb | ray feats | img feats | stats]
     map, at every ``gather_stride``-th sample only when the stride is > 1;
     otherwise rgb comes from ``imgs`` and the features from the 1/4-res
-    ``merged_feats``.  ``que_dir`` gives the fused ``dir_diff`` feature.
+    ``merged_feats``, or, without that map (the ft renderer), from
+    ``ray_feats`` and ``img_feats``, each at its own resolution.
+    ``que_dir`` gives the fused ``dir_diff`` feature.
 
     :param que_pts: (qn, rn, dn, 3) world points; que_dir likewise.
     :return: dict of (qn, rn, dn, rfn, c) tensors — (qn, dn, rn, rfn, c)
@@ -233,12 +236,18 @@ def project_points_dict(ref_data: dict, que_pts: torch.Tensor,
         prj_img_feats = allf[..., 3 + nd:3 + nd + ni]
         if allf.shape[-1] > 3 + nd + ni:
             stats = allf[..., 3 + nd + ni:]
-    else:
+    elif "merged_feats" in ref_data:
         prj_rgb = interpolate_feats_pointmajor(ref_data["imgs"], xy_vm, h, w)
         merged = interpolate_feats_pointmajor(ref_data["merged_feats"],
                                               xy_vm, h, w)
         prj_ray_feats = merged[..., :nd]
         prj_img_feats = merged[..., nd:]
+    else:
+        prj_rgb = interpolate_feats_pointmajor(ref_data["imgs"], xy_vm, h, w)
+        prj_ray_feats = interpolate_feats_pointmajor(ref_data["ray_feats"],
+                                                     xy_vm, h, w)
+        prj_img_feats = interpolate_feats_pointmajor(ref_data["img_feats"],
+                                                     xy_vm, h, w)
 
     shape = (qn, dn, rn, rfn, -1) if depth_major else (qn, rn, dn, rfn, -1)
     out = {

@@ -3,7 +3,9 @@
 Port of ``panogrf_tpu/renderer/renderer.py``'s hierarchical mode:
 per-scene encoding (``prepare_ref``), the coarse + fine passes over a
 chunk of rays (deterministic for serving, stochastic with a generator for
-training) and the training forward with its depth-loss head.  Submodule
+training) and the training forward with its depth-loss head and, with
+``use_self_hit_prob``, the query view's own hit probabilities of the
+consistency loss.  Submodule
 and parameter names follow the reference PyTorch state dict, so
 ``load_state_dict`` takes a reference renderer checkpoint and
 ``utils.from_jax.load_jax_params`` takes the JAX package's parameter tree.
@@ -27,8 +29,8 @@ from panogrf_tpu_torch.ops.resample import interpolate_feats
 from panogrf_tpu_torch.renderer import render_ops as ro
 from panogrf_tpu_torch.renderer.agg_net import DefaultAggregationNet
 from panogrf_tpu_torch.renderer.dist_decoder import (
-    MixtureLogisticsDistDecoder, compute_prob, get_near_far_intervals_ref,
-    get_near_far_intervals_ref_dm)
+    MixtureLogisticsDistDecoder, compute_prob, get_near_far_intervals_que,
+    get_near_far_intervals_ref, get_near_far_intervals_ref_dm)
 from panogrf_tpu_torch.renderer.init_net import (CostVolumeInitNet,
                                                  DefaultVisEncoder)
 from panogrf_tpu_torch.utils.device import resolve_device
@@ -51,6 +53,7 @@ class NeuralRayGenRenderer(nn.Module):
                  gather_stride: int = 1, gather_stride_fine: int = 0,
                  decode_on_map: bool = False,
                  coarse_geometry_only: bool = False,
+                 use_self_hit_prob: bool = False,
                  device: str | torch.device = "cuda",
                  generator: torch.Generator | None = None):
         dev = resolve_device(device)
@@ -63,6 +66,7 @@ class NeuralRayGenRenderer(nn.Module):
         self.use_hierarchical_sampling = use_hierarchical_sampling
         self.fine_depth_use_all = fine_depth_use_all
         self.use_disp = use_disp
+        self.use_self_hit_prob = use_self_hit_prob
         self.compute_dtype = getattr(torch, compute_dtype)
         self.fast_gather = fast_gather
         self.gather_depth_major = gather_depth_major
@@ -267,6 +271,22 @@ class NeuralRayGenRenderer(nn.Module):
             out["depth_mean_fine_2"] = mean_f[..., 1]
         return out
 
+    def predict_self_hit_prob(self, que_ray_feats: torch.Tensor,
+                              que_depth: torch.Tensor,
+                              que_dists: torch.Tensor,
+                              que_depth_range: torch.Tensor,
+                              is_fine: bool) -> torch.Tensor:
+        """The query view's own hit probability at its samples (the
+        consistency loss's prediction): the mixture decoded from the query
+        ray features (qn, rn, F), evaluated on the bins between the
+        samples que_depth (qn, rn, dn).  :return: (qn, rn, dn)."""
+        decoder = self.fine_dist_decoder if is_fine else self.dist_decoder
+        mean, var, aw = decoder(que_ray_feats)
+        near, far = get_near_far_intervals_que(que_depth, que_dists,
+                                               que_depth_range)
+        return compute_prob(near, far, mean[:, :, None], var[:, :, None],
+                            aw[:, :, None])[2]
+
     def forward(self, data: dict, generator: torch.Generator | None = None,
                 fine_samples: int | None = None) -> dict:
         """Train-step forward (the JAX package's ``__call__``, hierarchical
@@ -276,7 +296,8 @@ class NeuralRayGenRenderer(nn.Module):
         (rfn, dh, dw, 1), depth_range (rfn, 2), w2c (rfn, 3, 4) and
         optionally true_depth (rfn, H, W, 1); ``que_imgs_info`` with coords
         (qn, rn, 2), c2w (3, 4), depth_range (qn, 2) and optionally imgs
-        (qn, H, W, 3); optionally ``depth_coords`` (rfn, pn, 2).
+        (qn, H, W, 3) and, for the consistency loss, mvs_depth
+        (qn, dh, dw, 1); optionally ``depth_coords`` (rfn, pn, 2).
         """
         ref_info = data["ref_imgs_info"]
         que_info = data["que_imgs_info"]
@@ -287,6 +308,22 @@ class NeuralRayGenRenderer(nn.Module):
                                    que_info["depth_range"],
                                    ref_info["depth_range"], generator,
                                    fine_samples)
+        if self.use_self_hit_prob and "imgs" in que_info \
+                and "mvs_depth" in que_info:
+            # the query view encoded as a reference, its ray features
+            # sampled at the rays
+            que_enc = self.prepare_ref(que_info["imgs"],
+                                       que_info["mvs_depth"])
+            que_feats = interpolate_feats(que_enc["ray_feats"], coords,
+                                          self.height, self.width)
+            qdr = que_info["depth_range"]
+            passes = (("", False), ("_fine", True)) \
+                if self.use_hierarchical_sampling else (("", False),)
+            for sfx, fine in passes:
+                depth = outputs["que_depth" + sfx]
+                outputs["hit_prob_self" + sfx] = self.predict_self_hit_prob(
+                    que_feats, depth, ro.depth2inv_dists(depth, qdr), qdr,
+                    is_fine=fine)
         if "imgs" in que_info:
             gt = ro.gather_at_coords_batched(que_info["imgs"], coords)
             outputs["pixel_colors_gt"] = gt

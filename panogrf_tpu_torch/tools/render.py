@@ -18,9 +18,10 @@ images are saved as ``.npy``.  Frames already on disk are skipped unless
 The reference views' depth comes from the scenes' true depth, or, with
 ``--mono-ckpt``/``--mvs-ckpt``/``--wo-stereo``/``--depth-stack``, from the
 frozen depth stack (UniFuse, then the 360-degree MVS net): no true depth
-is read then.  Checkpoints are reference-layout files; ``--depth-stack``
-runs the whole stack with random weights for each net without one, where
-the JAX tool runs the mono net alone.  ``--ckpt`` is a renderer
+is read then.  Checkpoints are reference-layout files; without
+``--mvs-ckpt`` the stack is UniFuse alone, as in the JAX tool, and
+``--depth-stack`` without checkpoints runs it with random weights.
+``--ckpt`` is a renderer
 checkpoint in the reference ``model.pth`` layout, which the port's
 trainer writes.
 
@@ -54,7 +55,7 @@ from panogrf_tpu_torch.renderer.presets import (PRESET_CHUNK,
 from panogrf_tpu_torch.renderer.renderer import NeuralRayGenRenderer
 from panogrf_tpu_torch.train import metrics as M
 from panogrf_tpu_torch.train.trainer import load_checkpoint_params
-from panogrf_tpu_torch.utils.device import resolve_device
+from panogrf_tpu_torch.utils.device import resolve_device, synchronize
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -96,8 +97,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--wo-stereo", action="store_true",
                     help="mono-only depth: skip the MVS net")
     ap.add_argument("--depth-stack", action="store_true",
-                    help="run the depth stack, random weights for each "
-                         "net without a checkpoint")
+                    help="run the depth stack even without checkpoints "
+                         "(UniFuse alone unless --mvs-ckpt; random weights "
+                         "without --mono-ckpt)")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'")
     for flag in ("--shards", "--lpips-weights"):
@@ -118,11 +120,6 @@ def save_image(path: Path, img) -> None:
         np.save(path.with_suffix(".npy"), arr)
 
 
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
-
 def _refuse_unported(args) -> None:
     unported = {"--shards (offline shard reader)": args.shards,
                 "--mesh (multi-GPU rendering)": args.mesh,
@@ -135,8 +132,8 @@ def _refuse_unported(args) -> None:
 
 def main(argv=None) -> dict:
     """Run the tool on ``argv``; returns a summary: per-frame metrics of
-    'eval', their mean, per-scene path timings of 'inter' and the depth
-    stack's seconds per scene."""
+    'eval', their mean, per-scene path timings of 'inter', the depth
+    stack's nets and its seconds per scene."""
     args = parse_args(argv)
     _refuse_unported(args)
     dev = resolve_device(args.device)
@@ -169,6 +166,7 @@ def main(argv=None) -> dict:
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
 
+    summary = {"frames": [], "videos": [], "stack_seconds": []}
     stack = None
     if args.mono_ckpt or args.mvs_ckpt or args.wo_stereo or args.depth_stack:
         stack = load_depth_stack(
@@ -177,14 +175,15 @@ def main(argv=None) -> dict:
             mono_hw=(max(H, 64), max(W, 128)),
             # the MVS UNet needs >= 32 rows; its depth is resized to DH, DW
             depth_hw=(max(DH, 32), max(DW, 64)), wo_stereo=args.wo_stereo,
-            random_mvs=args.depth_stack, device=dev)
+            device=dev)
         mvs = args.mvs_ckpt or ("-" if stack.mvs_model is None
                                 else "random")
         print(f"depth stack: mono={args.mono_ckpt or 'random'} mvs={mvs}")
+        summary["depth_stack"] = {"mono": args.mono_ckpt or "random",
+                                  "mvs": mvs}
 
     coords = imgs_info.sample_train_coords(np.random.default_rng(0), H, W, 8,
                                            device=dev)
-    summary = {"frames": [], "videos": [], "stack_seconds": []}
     for qi in range(args.num):
         if not args.no_skip and args.pose_type == "eval" and \
                 (out_dir / f"{qi}-nr_fine.png").exists():
@@ -196,11 +195,11 @@ def main(argv=None) -> dict:
         ref_info = data["ref_imgs_info"]
         que_info = data["que_imgs_info"]
         if stack is not None:
-            _sync(dev)
+            synchronize(dev)
             t0 = time.perf_counter()
             pred = stack_depth_for_sample(stack, s, imgs_info.REF_IDS,
                                           imgs_info.SRC_IDS)
-            _sync(dev)
+            synchronize(dev)
             summary["stack_seconds"].append(time.perf_counter() - t0)
             ref_info["mvs_depth"] = resize_linear(pred["mvs_depth"],
                                                   (DH, DW), axes=(1, 2))
@@ -219,7 +218,7 @@ def main(argv=None) -> dict:
                                                     device=dev)
             fb = max(1, args.frame_batch)
             frames = []
-            _sync(dev)
+            synchronize(dev)
             t0 = time.perf_counter()
             for g0 in range(0, len(path), fb):
                 grp = path[g0:g0 + fb]
@@ -239,7 +238,7 @@ def main(argv=None) -> dict:
                         coarse_lowres=clr, coarse_chunk=coarse_chunk,
                         device=dev)[None]
                 frames += list(rgbs[:ng].cpu().numpy())
-            _sync(dev)
+            synchronize(dev)
             seconds = time.perf_counter() - t0
             summary["videos"].append({"scene": qi, "frames": len(frames),
                                       "frame_batch": fb, "seconds": seconds,
@@ -261,7 +260,7 @@ def main(argv=None) -> dict:
                       f"failed: {e})")
             continue
 
-        _sync(dev)
+        synchronize(dev)
         t0 = time.perf_counter()
         if clr > 1:
             ref_data = full_render.prepare_ref_data(model, ref_info,
@@ -274,7 +273,7 @@ def main(argv=None) -> dict:
             rgb = full_render.render_image(
                 model, ref_info, que_info["c2w"], qdr,
                 chunk=min(8192, H * W), device=dev)["rgb"]
-        _sync(dev)
+        synchronize(dev)
         dt = time.perf_counter() - t0
         gt = s["rgb_panos"][imgs_info.QUE_ID]
         m = {k: float(v) for k, v in M.render_metrics(rgb, gt).items()}

@@ -1,28 +1,35 @@
 """Train the generalizable renderer on procedural scenes.
 
-    python -m panogrf_tpu_torch.tools.train_renderer --cfg <yaml> \\
-        [--steps N] [--pool P] [--count-jitter 64,64,48,32] \\
+    python -m panogrf_tpu_torch.tools.train_renderer [--cfg <yaml>] \\
+        [--steps N] [--pool P] [--mv V] [--count-jitter 64,64,48,32] \\
         [--depth-source gt|stack] [--mono-ckpt F] [--mvs-ckpt F] \\
         [--wo-stereo] [--device cpu]
 
-Port of the repo's ``tools/train_renderer.py`` (2-view protocol).  It reads
-the repo's YAML configs, pre-renders a pool of ``--pool`` synthetic scenes
-on the device, draws 512 training rays per step and trains with Adam on
-the config's lr schedule; the checkpoint lands in
-``<save_dir>/<name>/latest/model.pth``.  Every ``val_interval`` steps it
-renders the query view of 2 fixed validation scenes (seeds 10000 + i),
-logs their mean PSNR / SSIM / WS-PSNR and keeps the best checkpoint by
-``psnr_nr`` in ``<save_dir>/<name>/best``; each validation writes the
-scenes' ``gt | pred`` images and turbo depth maps under
-``<save_dir>/<name>/vis``.  The reference views' depth is
-the scenes' true depth, or with ``--depth-source stack`` (implied by
-``--mono-ckpt``/``--mvs-ckpt``/``--wo-stereo``) the frozen depth stack's
-prediction, computed once per scene.  It runs on the CUDA device and
-raises without one unless ``--device cpu`` is given.
+Port of the repo's ``tools/train_renderer.py``.  It reads the repo's YAML
+configs (the default config without ``--cfg``), pre-renders a pool of
+``--pool`` synthetic scenes on the device, draws 512 training rays per
+step and trains with Adam on the config's lr schedule; the checkpoint
+lands in ``<save_dir>/<name>/latest/model.pth``.  Every ``val_interval``
+steps it renders the query view of 2 fixed validation scenes (seeds
+10000 + i), logs their mean PSNR / SSIM / WS-PSNR and keeps the best
+checkpoint by ``psnr_nr`` in ``<save_dir>/<name>/best``; each validation
+writes the scenes' ``gt | pred`` images and turbo depth maps under
+``<save_dir>/<name>/vis``.
 
-Not ported yet, and refused with an error: ``--shards``, ``--mesh``,
-``--mv`` (and configs with ``test_views``) and the consistency loss's
-``use_self_hit_prob``.
+Scenes follow the 3-view protocol (query view 1, references [0, 2]), or,
+with ``--mv V`` or a config with ``test_views``, the multi-view one: V
+views along one axis, the references ``range(reference_idx)`` (``range(V
+- 1)`` for a bare ``--mv``) and a query drawn each step from
+``test_views`` (view V - 1 for a bare ``--mv``).  The reference views'
+depth is the scenes' true depth, or with ``--depth-source stack``
+(implied by ``--mono-ckpt``/``--mvs-ckpt``/``--wo-stereo``) the frozen
+depth stack's prediction, each view paired with the next reference,
+computed once per scene.  A config with ``use_self_hit_prob`` trains the
+consistency loss: the query view's depth comes from the same source,
+paired with the first reference.  It runs on the CUDA device and raises
+without one unless ``--device cpu`` is given.
+
+Not ported yet, and refused with an error: ``--shards`` and ``--mesh``.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ import torch
 from panogrf_tpu_torch.config import load_config
 from panogrf_tpu_torch.data import imgs_info
 from panogrf_tpu_torch.data.synthetic import (SphereScene,
+                                              make_multi_view_sample,
                                               make_three_view_sample)
 from panogrf_tpu_torch.models.depth_stack import (load_depth_stack,
                                                   stack_depth_for_sample)
@@ -53,7 +61,8 @@ TRAIN_RAYS = 512
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--cfg", required=True)
+    ap.add_argument("--cfg", default=None,
+                    help="config yaml (default: the default config)")
     ap.add_argument("--steps", type=int, default=None)
     ap.add_argument("--pool", type=int, default=16,
                     help="procedural scene pool size")
@@ -77,18 +86,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="mono-only stack depth: skip the MVS net")
     ap.add_argument("--shards", default=None, help="not ported yet")
     ap.add_argument("--mesh", type=int, default=0, help="not ported yet")
-    ap.add_argument("--mv", type=int, default=0, help="not ported yet")
+    ap.add_argument("--mv", type=int, default=0, metavar="V",
+                    help="multi-view training with V > 2 views: references "
+                         "range(V - 1), query view V - 1")
     return ap.parse_args(argv)
 
 
-def _refuse_unported(args, cfg) -> None:
+def _refuse_unported(args) -> None:
     unported = {
         "--shards (offline shard reader)": args.shards,
         "--mesh (multi-GPU training)": args.mesh,
-        "--mv / test_views (multi-view protocol)":
-            args.mv or cfg.data.test_views,
-        "use_self_hit_prob (consistency loss)":
-            cfg.renderer.use_self_hit_prob,
     }
     for what, asked in unported.items():
         if asked:
@@ -100,7 +107,7 @@ def build(args: argparse.Namespace, log_fn=None) -> tuple:
     """(trainer, batch iterator, number of steps) for ``args``; ``log_fn``
     (step, metrics) is called beside the printed log."""
     cfg = load_config(args.cfg)
-    _refuse_unported(args, cfg)
+    _refuse_unported(args)
     dev = resolve_device(args.device)
     num_steps = args.steps or cfg.train.total_step
     R = cfg.renderer
@@ -113,7 +120,7 @@ def build(args: argparse.Namespace, log_fn=None) -> tuple:
         depth_sample_num=R.depth_sample_num,
         fine_depth_sample_num=R.fine_depth_sample_num,
         use_hierarchical_sampling=R.use_hierarchical_sampling,
-        use_disp=R.use_disp,
+        use_disp=R.use_disp, use_self_hit_prob=R.use_self_hit_prob,
         # gather rows in depth-major order, as the JAX recipe does
         gather_depth_major=True)
     model = NeuralRayGenRenderer(
@@ -122,10 +129,27 @@ def build(args: argparse.Namespace, log_fn=None) -> tuple:
     print(f"renderer params: "
           f"{sum(p.numel() for p in model.parameters()) / 1e6:.2f}M")
 
+    # the multi-view protocol: V views, references range(reference_idx)
+    # (range(V - 1) for a bare --mv), the query drawn from test_views
+    mv = args.mv or (cfg.data.seq_len if cfg.data.test_views else 0)
+    if mv:
+        n_ref = cfg.data.reference_idx if cfg.data.test_views else mv - 1
+        ref_ids = list(range(n_ref))
+        que_ids = list(cfg.data.test_views) or [mv - 1]
+    else:
+        ref_ids, que_ids = list(imgs_info.REF_IDS), [imgs_info.QUE_ID]
+
+    def make_sample(scene: SphereScene, seed: int) -> dict:
+        if mv:
+            return make_multi_view_sample(scene, H, W, mv, cfg.data.m3d_dist,
+                                          seed=seed)
+        return make_three_view_sample(scene, H, W, cfg.data.m3d_dist,
+                                      seed=seed)
+
     rng = np.random.default_rng(cfg.train.seed)
-    pool = [make_three_view_sample(
-        SphereScene.random(int(rng.integers(1 << 30)), device=dev), H, W,
-        cfg.data.m3d_dist, seed=i) for i in range(args.pool)]
+    pool = [make_sample(SphereScene.random(int(rng.integers(1 << 30)),
+                                           device=dev), i)
+            for i in range(args.pool)]
 
     stack = None
     if args.depth_source == "stack" or (args.depth_source is None and (
@@ -140,37 +164,51 @@ def build(args: argparse.Namespace, log_fn=None) -> tuple:
         print(f"depth source: frozen stack (mono="
               f"{args.mono_ckpt or 'random'}, mvs={args.mvs_ckpt or '-'})")
 
-    # each scene's reference depth on the init net's grid, computed once:
-    # the stack's prediction depends only on the scene's images and poses
+    # each scene's depth of given views on the init net's grid, computed
+    # once: the stack's prediction depends only on the scene's images and
+    # poses
     depth_cache: dict = {}
 
-    def ref_depth(s: dict, key) -> torch.Tensor:
+    def view_depth(s: dict, key, ids, srcs) -> torch.Tensor:
         if key not in depth_cache:
             if stack is not None:
-                d = stack_depth_for_sample(stack, s, imgs_info.REF_IDS,
-                                           imgs_info.SRC_IDS)["mvs_depth"]
+                d = stack_depth_for_sample(stack, s, ids, srcs)["mvs_depth"]
             else:
-                d = s["depth_panos"][list(imgs_info.REF_IDS)]
+                d = s["depth_panos"][list(ids)]
             depth_cache[key] = resize_linear(d, (DH, DW), axes=(1, 2))
         return depth_cache[key]
+
+    def ref_depth(s: dict, key) -> torch.Tensor:
+        # each reference's source is the next reference, cyclically: the
+        # 3-view protocol's SRC_IDS for references (0, 2)
+        return view_depth(s, key, ref_ids, None)
 
     def batches():
         while True:
             si = int(rng.integers(len(pool)))
+            s, key = pool[si], ("pool", si)
             coords = imgs_info.sample_train_coords(rng, H, W, TRAIN_RAYS,
                                                    device=dev)
-            data = imgs_info.build_render_sample(
-                pool[si], coords, (R.min_depth, R.max_depth),
-                src_for_mvs=False)
-            data["ref_imgs_info"]["mvs_depth"] = ref_depth(pool[si],
-                                                           ("pool", si))
+            if mv:
+                que = que_ids[int(rng.integers(len(que_ids)))]
+                data = imgs_info.build_render_sample_mv(
+                    s, coords, ref_ids, que, (R.min_depth, R.max_depth))
+            else:
+                que = que_ids[0]
+                data = imgs_info.build_render_sample(
+                    s, coords, (R.min_depth, R.max_depth),
+                    src_for_mvs=False)
+            data["ref_imgs_info"]["mvs_depth"] = ref_depth(s, key)
+            if R.use_self_hit_prob:
+                # the consistency loss encodes the query view too
+                data["que_imgs_info"]["mvs_depth"] = view_depth(
+                    s, key + ("que", que), [que], [ref_ids[0]])
             yield data
 
     # fixed validation scenes: the query view rendered in full, its
     # metrics averaged; the trainer keeps the best checkpoint by psnr_nr
-    val_scenes = [make_three_view_sample(
-        SphereScene.random(10_000 + vi, device=dev), H, W,
-        cfg.data.m3d_dist, seed=10_000 + vi) for vi in range(2)]
+    val_scenes = [make_sample(SphereScene.random(10_000 + vi, device=dev),
+                              10_000 + vi) for vi in range(2)]
 
     vis_dir = Path(cfg.train.save_dir) / cfg.train.name / "vis"
 
@@ -178,15 +216,14 @@ def build(args: argparse.Namespace, log_fn=None) -> tuple:
         vals = []
         for vi, s in enumerate(val_scenes):
             ref_info = imgs_info.build_imgs_info(
-                s, imgs_info.REF_IDS, (R.min_depth, R.max_depth))
+                s, ref_ids, (R.min_depth, R.max_depth))
             ref_info["mvs_depth"] = ref_depth(s, ("val", vi))
-            que_w2c = imgs_info.pose_w2c(s["rots"], s["trans"])[
-                imgs_info.QUE_ID]
+            que_w2c = imgs_info.pose_w2c(s["rots"], s["trans"])[que_ids[0]]
             c2w = imgs_info.c2w_from_w2c(que_w2c[None])[0]
             out = full_render.render_image(
                 model, ref_info, c2w, [[R.min_depth, R.max_depth]],
                 chunk=min(8192, H * W), device=dev)
-            gt = s["rgb_panos"][imgs_info.QUE_ID]
+            gt = s["rgb_panos"][que_ids[0]]
             m = M.render_metrics(out["rgb"], gt)
             V.dump_render_val(vis_dir, step, vi, gt.cpu().numpy(),
                               out["rgb"].cpu().numpy(),

@@ -2,7 +2,8 @@
 
 Port of ``panogrf_tpu/train/losses.py``.  Renderer losses are functions
 (data_pr, data_gt, step) -> dict of per-sample losses, and the trainer
-sums the mean of every ``*loss*`` entry (``NAME2LOSS``, ``total_loss``).
+sums the mean of every ``*loss*`` entry (``NAME2LOSS``, ``total_loss``;
+``depth_ft`` is the finetuning stage's, from ``ft_losses``).
 The depth-network losses (``l1_sphere_loss``, ``berhu_loss``,
 ``gaussian_nll_loss``, ``laplacian_nll_loss``) take channel-last
 (B, H, W, 1) maps and return a scalar.
@@ -16,6 +17,7 @@ from typing import Callable, Dict
 import torch
 
 from panogrf_tpu_torch.ops.resample import interpolate_feats
+from panogrf_tpu_torch.train.ft_losses import depth_ft_loss
 
 
 def _masked_rgb_loss(rgb_pr: torch.Tensor, rgb_gt: torch.Tensor,
@@ -111,6 +113,7 @@ NAME2LOSS: Dict[str, Callable] = {
     "render": render_loss,
     "depth": depth_loss,
     "consistency": consistency_loss,
+    "depth_ft": depth_ft_loss,
 }
 
 

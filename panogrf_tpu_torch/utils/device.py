@@ -16,3 +16,10 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def synchronize(dev: torch.device) -> None:
+    """Wait for the work queued on ``dev`` (a no-op on the CPU), so that a
+    host clock around it measures the work and not its enqueueing."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)

@@ -7,6 +7,10 @@ layout, which the port's modules use.
 
 * ``renderer_state_dict``: ``NeuralRayGenRenderer`` params, inverse of
   ``convert_renderer``;
+* ``ft_renderer_state_dict``: ``NeuralRayFtRenderer`` params: the gen
+  renderer's keys without ``init_net.*``, and the (rfn, fh, fw, F)
+  ``ray_feats`` as one (1, F, fh, fw) ``ray_feats.{i}`` per view, the
+  layout ``extract_ray_feats`` reads;
 * ``unifuse_state_dict``: ``UniFuse`` params + batch_stats, inverse of
   ``convert_unifuse`` (which leaves out the uncertainty head);
 * ``equi_depth_state_dict``: ``EquiDepth``, inverse of
@@ -37,6 +41,7 @@ from panogrf_tpu_torch.models.mvs import MVSDepthModel
 from panogrf_tpu_torch.models.unifuse import (EQUI_DEPTH_DECODER_ORDER,
                                               UNIFUSE_DECODER_ORDER,
                                               CubeDepth, EquiDepth, UniFuse)
+from panogrf_tpu_torch.renderer.ft_renderer import NeuralRayFtRenderer
 
 _POOL_STACKS = ("ray_dir_fc", "neuray_fc", "base_fc", "vis_fc", "vis_fc2",
                 "geometry_fc", "rgb_fc")
@@ -198,15 +203,9 @@ class _StateDict(dict):
             att["LayerNorm_0"]["bias"])
 
 
-def renderer_state_dict(params: dict) -> dict:
-    """The JAX ``NeuralRayGenRenderer``'s params (with or without the outer
-    ``{"params": ...}``) -> reference-layout state dict of CPU tensors."""
-    p = params.get("params", params)
-    sd = _StateDict()
+def _shared_renderer_modules(sd: _StateDict, p: dict) -> None:
+    """The modules the gen and the ft renderer share."""
     sd.resunet("image_encoder", p["image_encoder"], (1, 2, 6))
-    sd.resunet("init_net.res_net", p["init_net"]["res_net"], (2, 3, 6))
-    sd.conv_res_conv("init_net.depth_conv", p["init_net"]["depth_conv"], 1)
-    sd.conv_res_conv("init_net.out_conv", p["init_net"]["out_conv"], 1)
     sd.conv_res_conv("vis_encoder.out_conv", p["vis_encoder"], 2)
     # the fine modules exist only with hierarchical sampling
     for name in ("dist_decoder", "fine_dist_decoder"):
@@ -215,6 +214,28 @@ def renderer_state_dict(params: dict) -> dict:
     for name in ("agg_net", "fine_agg_net"):
         if name in p:
             sd.agg_net(name, p[name])
+
+
+def renderer_state_dict(params: dict) -> dict:
+    """The JAX ``NeuralRayGenRenderer``'s params (with or without the outer
+    ``{"params": ...}``) -> reference-layout state dict of CPU tensors."""
+    p = params.get("params", params)
+    sd = _StateDict()
+    _shared_renderer_modules(sd, p)
+    sd.resunet("init_net.res_net", p["init_net"]["res_net"], (2, 3, 6))
+    sd.conv_res_conv("init_net.depth_conv", p["init_net"]["depth_conv"], 1)
+    sd.conv_res_conv("init_net.out_conv", p["init_net"]["out_conv"], 1)
+    return dict(sd)
+
+
+def ft_renderer_state_dict(params: dict) -> dict:
+    """The JAX ``NeuralRayFtRenderer``'s params -> the reference ft state
+    dict of CPU tensors."""
+    p = params.get("params", params)
+    sd = _StateDict()
+    _shared_renderer_modules(sd, p)
+    for i, rf in enumerate(np.asarray(p["ray_feats"])):
+        sd[f"ray_feats.{i}"] = _t(np.transpose(rf, (2, 0, 1))[None])
     return dict(sd)
 
 
@@ -292,10 +313,11 @@ def mvs_state_dict(variables: dict) -> dict:
 
 
 def load_jax_params(model: nn.Module, params: dict) -> nn.Module:
-    """Copy a JAX module's variables into the port ``model`` (a renderer,
-    a mono net or ``MVSDepthModel``; every parameter and buffer must be
-    matched); returns the model."""
-    converters = ((UniFuse, unifuse_state_dict),
+    """Copy a JAX module's variables into the port ``model`` (a gen or ft
+    renderer, a mono net or ``MVSDepthModel``; every parameter and buffer
+    must be matched); returns the model."""
+    converters = ((NeuralRayFtRenderer, ft_renderer_state_dict),
+                  (UniFuse, unifuse_state_dict),
                   (EquiDepth, equi_depth_state_dict),
                   (CubeDepth, cube_depth_state_dict),
                   (MVSDepthModel, mvs_state_dict))

@@ -15,8 +15,10 @@ import torch
 import panogrf_tpu_torch
 from panogrf_tpu_torch.models import depth_stack
 from panogrf_tpu_torch.renderer import full_render
+from panogrf_tpu_torch.renderer.ft_renderer import NeuralRayFtRenderer
 from panogrf_tpu_torch.renderer.renderer import NeuralRayGenRenderer
-from panogrf_tpu_torch.tools import render, train_renderer
+from panogrf_tpu_torch.tools import (render, render_ft, render_mv, train_ft,
+                                     train_renderer)
 from panogrf_tpu_torch.train.trainer import Trainer
 from torch_port_threads import one_torch_thread  # noqa: F401
 
@@ -46,15 +48,17 @@ def test_no_source_file_mentions_jax():
     pattern = re.compile(r"import jax|from jax|flax|panogrf_tpu\.")
     offenders = [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")
                  if pattern.search(p.read_text())]
-    assert len(_modules()) >= 46
-    # the depth stack's, the video slice's and depth training's modules
-    # are among them
+    assert len(_modules()) >= 52
+    # the depth stack's, the video slice's, depth training's and the
+    # multi-view and finetuning slice's modules are among them
     assert {f"panogrf_tpu_torch.{m}" for m in (
         "core.cubemap", "nn.resnet", "nn.fusion", "models.unifuse",
         "models.mvs", "models.depth_stack", "ops.cost_volume",
         "renderer.poses", "train.metrics", "tools.render",
         "train.depth_trainer", "train.losses", "utils.visualize",
-        "tools.train_mono", "tools.train_depth", "tools.eval_depth")} <= \
+        "tools.train_mono", "tools.train_depth", "tools.eval_depth",
+        "renderer.sample_utils", "renderer.ft_renderer", "train.ft_losses",
+        "tools.train_ft", "tools.render_ft", "tools.render_mv")} <= \
         set(_modules())
     assert not offenders, offenders
 
@@ -117,3 +121,22 @@ def test_entry_points_default_to_cuda(monkeypatch):
         train_renderer.parse_args(argv + ["--device", "cpu"]))[0]
     assert isinstance(trainer, Trainer)
     assert trainer.model.directions.device.type == "cpu"
+
+    # the finetuning renderer and CLIs, and render_mv: CUDA unless asked
+    with pytest.raises(RuntimeError, match="CUDA"):
+        NeuralRayFtRenderer(rfn=2, ray_feats_hw=(2, 4), height=8, width=16)
+    assert NeuralRayFtRenderer(rfn=2, ray_feats_hw=(2, 4), height=8,
+                               width=16, device="cpu").directions \
+        .device.type == "cpu"
+    small = ["--height", "32", "--width", "64", "--depth-height", "32",
+             "--depth-width", "64"]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_ft.main(small + ["--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        render_ft.main(["--ckpt", "model.pth", "--height", "32", "--width",
+                        "64"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        render_mv.main(small + ["--num", "1"])
+    ft = train_ft.FtTrainer(train_ft.parse_args(
+        small + ["--rays", "8", "--device", "cpu"]))
+    assert ft.model.directions.device.type == "cpu"

@@ -286,7 +286,7 @@ def test_losses_match_jax():
         tl.normalize_inv_depth(torch.tensor(d), torch.tensor(dr)).numpy(),
         np.asarray(jl.normalize_inv_depth(jnp.asarray(d), jnp.asarray(dr))),
         atol=1e-6)
-    assert set(tl.NAME2LOSS) == set(jl.NAME2LOSS) - {"depth_ft"}
+    assert set(tl.NAME2LOSS) == set(jl.NAME2LOSS)
 
 
 @pytest.mark.parametrize("name,kw", [
@@ -501,7 +501,7 @@ def test_cli_trains_and_its_checkpoint_loads_in_jax(tmp_path, monkeypatch):
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
     cfg = str(REPO / "configs/gen_synthetic_small.yaml")
-    for extra in (["--mesh", "4"], ["--mv", "4"], ["--shards", "x"]):
+    for extra in (["--mesh", "4"], ["--shards", "x"]):
         with pytest.raises(NotImplementedError, match="not ported"):
             tcli.build(tcli.parse_args(["--cfg", cfg, "--device", "cpu",
                                         *extra]))
