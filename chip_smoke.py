@@ -34,7 +34,14 @@ the wrapper's host cost, then drives the port's two paths at full width
   recipe with and without the consistency loss, the ``train_ft`` CLI with
   depth guidance from the 2-view checkpoint (6 steps each, the latter two
   profiled), ``render_ft`` and ``render_mv`` frames at 512x1024, and a
-  consistency step and an ft step at 64x128 on CUDA against the CPU.
+  consistency step and an ft step at 64x128 on CUDA against the CPU;
+* the renderer's other modes: 512x1024 DINER frames (bench.py's
+  ``--diner`` setup, 128 candidates, then with a 64-sample uniform pass
+  merged) and a light-coarse frame with a profile of DINER chunks, the
+  ``render_cubes`` CLI (six 256x256 cube faces), the ``ab_quality`` CLI
+  (6 DINER training steps, then its DINER modes), and DINER,
+  light-coarse, cube-face, nearest-gather and vis-head frames and a DINER
+  training step at 64x128 on CUDA against the CPU.
 
 Each path checks that it went through its kernels.  Each phase prints one
 JSON line; any failure raises, so the process exits non-zero.  The last
@@ -63,6 +70,7 @@ import yaml
 
 from panogrf_tpu_torch.core import cubemap
 from panogrf_tpu_torch.data import imgs_info
+from panogrf_tpu_torch.data.database import PanoDatabase
 from panogrf_tpu_torch.data.synthetic import (SphereScene,
                                               make_multi_view_sample,
                                               make_three_view_sample)
@@ -72,7 +80,8 @@ from panogrf_tpu_torch.models import unifuse as tunifuse
 from panogrf_tpu_torch.nn import blocks as tblocks
 from panogrf_tpu_torch.nn.blocks import resize_linear
 from panogrf_tpu_torch.ops.kernels import _build, fused_mlp
-from panogrf_tpu_torch.renderer import full_render
+from panogrf_tpu_torch.renderer import diner as diner_mod
+from panogrf_tpu_torch.renderer import full_render, render_ops
 from panogrf_tpu_torch.renderer.presets import (PRESET_CHUNK,
                                                 PRESET_COARSE_LOWRES,
                                                 preset_kwargs)
@@ -82,8 +91,8 @@ from panogrf_tpu_torch.renderer.ft_renderer import (NeuralRayFtRenderer,
 from panogrf_tpu_torch.renderer.renderer import NeuralRayGenRenderer
 from panogrf_tpu_torch.tools import eval_depth, train_depth, train_mono
 from panogrf_tpu_torch.tools import render as render_tool
-from panogrf_tpu_torch.tools import (render_ft, render_mv, train_ft,
-                                     train_renderer)
+from panogrf_tpu_torch.tools import (ab_quality, render_cubes, render_ft,
+                                     render_mv, train_ft, train_renderer)
 from panogrf_tpu_torch.train import depth_trainer
 from panogrf_tpu_torch.train import trainer as trainer_mod
 
@@ -232,11 +241,16 @@ def call_mlp(name, args, acts, plain=False):
 F32, BF16 = torch.float32, torch.bfloat16
 # (label, rows, widths, activations, x's storage offset, expected variant
 # in float32 and in bfloat16): the path widths, ragged and tiny row counts,
-# a misaligned x and the wide cases
+# a misaligned x and the wide cases; mlp2's ``modes`` rows (4096 rays x 64
+# samples, a launch of the DINER / light-coarse frames and cube faces) are
+# more tiles than the ``lanes`` grid holds, so its blocks take several
+# grid-stride passes
 MLP_CASES = {
     "mlp2": [(lbl, n, (16, 16, 1), ("elu", "relu"), off, {F32: v, BF16: v})
              for lbl, n, off, v in [("path", 16384, 0, "lanes"),
                                     ("ragged", 16381, 0, "lanes"),
+                                    ("modes", 262144, 0, "lanes"),
+                                    ("modes_ragged", 262139, 0, "lanes"),
                                     ("n1", 1, 0, "lanes"),
                                     ("n17", 17, 0, "lanes"),
                                     ("misaligned", 16384, 1, "generic")]]
@@ -476,6 +490,56 @@ def bench_inputs(h, w, dh, dw):
     return ref_info, c2w, np.asarray([[0.5, 15.0]])
 
 
+def frame_run(phase: str, run: str, frame, expected: int, meta: dict,
+              like: torch.Tensor | None = None) -> tuple:
+    """One frame ``frame()`` counted (its mlp2 launches must equal
+    ``expected``, all ``lanes``, and no mlp3) then three CUDA-event timed
+    runs; checks the frame is (H, W, 3), finite, in [0, 1], and reports
+    its difference from ``like`` (the same frame at another chunk, whose
+    bfloat16 products may round differently).  Emits the phase's line and
+    returns it with the frame."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused_mlp.reset_launches()
+    t0 = time.perf_counter()
+    rgb = frame()
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    count, count3 = fused_mlp.MLP2_LAUNCHES, fused_mlp.MLP3_LAUNCHES
+    variants = dict(fused_mlp.VARIANT_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    runs, host_ms = [], []
+    for _ in range(3):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        start.record()
+        frame()
+        end.record()
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        runs.append(start.elapsed_time(end))
+    row = {"phase": phase, "run": run, "hw": list(rgb.shape[:2]), **meta,
+           "mlp2_launches": count, "mlp3_launches": count3,
+           "variant_launches": variants,
+           "ms_per_frame": statistics.median(runs),
+           "ms_per_frame_runs": runs, "host_ms_runs": host_ms,
+           "first_frame_ms": first_ms, "peak_mem_bytes": peak,
+           "rgb_mean": rgb.mean().item(), "rgb_std": rgb.std().item()}
+    if like is not None:
+        diff = (rgb - like).abs()
+        row["max_abs_diff_vs_preset_chunk"] = diff.max().item()
+        row["mean_abs_diff_vs_preset_chunk"] = diff.mean().item()
+    emit(row)
+    if tuple(rgb.shape) != (H, W, 3) or not torch.isfinite(rgb).all() \
+            or rgb.min() < 0 or rgb.max() > 1:
+        raise AssertionError(f"{phase} {run}: bad frame {tuple(rgb.shape)}")
+    if count != expected or count3:
+        raise AssertionError(f"{phase} {run}: mlp2 launched {count} times, "
+                             f"expected {expected}; mlp3 {count3}")
+    assert_specialised(f"{phase} {run}", count, variants)
+    return row, rgb
+
+
 def render_full_width() -> tuple:
     """The serving frames at 512x1024; returns ({preset: mlp2 launches of
     its first frame}, mlp3 launches over the frames' first runs)."""
@@ -496,86 +560,55 @@ def render_full_width() -> tuple:
         f = PRESET_COARSE_LOWRES[preset]
         # one mlp2 launch per chunk of the fine pass and of the coarse pass
         expected = H * W // chunk + (H // f) * (W // f) // chunk
-
-        def frame():
-            return full_render.render_image_device(
+        row, rgb = frame_run(
+            "frame", preset, lambda: full_render.render_image_device(
                 model, ref, c2w, qdr, ref_info["depth_range"], chunk=chunk,
-                coarse_lowres=f)
-        torch.cuda.reset_peak_memory_stats()
-        fused_mlp.reset_launches()
-        t0 = time.perf_counter()
-        rgb = frame()                                  # warm-up, counted
-        torch.cuda.synchronize()
-        first_ms = (time.perf_counter() - t0) * 1e3
-        count, count3 = fused_mlp.MLP2_LAUNCHES, fused_mlp.MLP3_LAUNCHES
-        variants = dict(fused_mlp.VARIANT_LAUNCHES)
-        mlp3_launches += count3
-        launches.setdefault(preset, count)
+                coarse_lowres=f), expected,
+            {"preset": preset, "depth_hw": [DH, DW], "samples": [64, 64],
+             "chunk": chunk, "coarse_lowres": f, "dtype": "bfloat16",
+             "prepare_ref_ms": prep_ms},
+            like=first_rgb.get(preset))
+        mlp3_launches += row["mlp3_launches"]
+        launches.setdefault(preset, row["mlp2_launches"])
         first_rgb.setdefault(preset, rgb)
-        peak = torch.cuda.max_memory_allocated()
-        if tuple(rgb.shape) != (H, W, 3) or not torch.isfinite(rgb).all() \
-                or rgb.min() < 0 or rgb.max() > 1:
-            raise AssertionError(f"{preset}: bad frame {tuple(rgb.shape)}")
-        if count != expected:
-            raise AssertionError(f"{preset} chunk {chunk}: mlp2 launched "
-                                 f"{count} times, expected {expected}")
-        assert_specialised(f"{preset} chunk {chunk}", count, variants)
-        diff = (rgb - first_rgb[preset]).abs()
-        dev_ms, host_ms = [], []
-        for _ in range(3):
-            start, end = (torch.cuda.Event(enable_timing=True)
-                          for _ in range(2))
-            t0 = time.perf_counter()
-            start.record()
-            frame()
-            end.record()
-            torch.cuda.synchronize()
-            host_ms.append((time.perf_counter() - t0) * 1e3)
-            dev_ms.append(start.elapsed_time(end))
-        emit({"phase": "frame", "preset": preset, "hw": [H, W],
-              "depth_hw": [DH, DW], "samples": [64, 64],
-              "chunk": chunk, "coarse_lowres": f,
-              "dtype": "bfloat16", "mlp2_launches": count,
-              "mlp3_launches": count3, "variant_launches": variants,
-              "ms_per_frame": statistics.median(dev_ms),
-              "ms_per_frame_runs": dev_ms, "host_ms_runs": host_ms,
-              "first_frame_ms": first_ms, "prepare_ref_ms": prep_ms,
-              "peak_mem_bytes": peak,
-              "rgb_mean": rgb.mean().item(), "rgb_std": rgb.std().item(),
-              # bfloat16 products of other shapes may round differently
-              "max_abs_diff_vs_preset_chunk": diff.max().item(),
-              "mean_abs_diff_vs_preset_chunk": diff.mean().item()})
+    c2w_t, qdr_t, dr_t = cuda_f32(c2w, qdr, ref_info["depth_range"])
     for chunk, n_chunks in ((256, 16), (4096, 2)):
-        profile_chunks(model, ref, c2w, qdr, ref_info["depth_range"], chunk,
-                       n_chunks)
-    return launches, mlp3_launches
+        ys, xs = torch.meshgrid(
+            torch.arange(H // 2 - 4, H // 2 + 4, device="cuda"),
+            torch.arange(W, device="cuda"), indexing="ij")
+        coords = torch.stack([xs, ys], -1).reshape(-1, 1, chunk, 2).float()
+        hit = torch.rand(coords.shape[0], 1, chunk, 64, device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(0))
 
-
-def profile_chunks(model, ref, c2w, qdr, dr, chunk: int,
-                   n_chunks: int) -> None:
-    """Device time by kernel and by PyTorch operator over ``n_chunks``
-    serving fine-pass chunks of ``chunk`` rays (torch.profiler), the host
-    time by operator, and the share of the window the device was busy."""
-    from torch.profiler import ProfilerActivity, profile
-    dev = torch.device("cuda")
-    c2w_t, qdr_t, dr_t = (torch.as_tensor(x, dtype=torch.float32, device=dev)
-                          for x in (c2w, qdr, dr))
-    ys, xs = torch.meshgrid(torch.arange(H // 2 - 4, H // 2 + 4, device=dev),
-                            torch.arange(W, device=dev), indexing="ij")
-    coords = torch.stack([xs, ys], -1).reshape(-1, 1, chunk, 2).float()
-    hit = torch.rand(coords.shape[0], 1, chunk, 64, device=dev,
-                     generator=torch.Generator(dev).manual_seed(0))
-
-    def run():
-        with torch.inference_mode():
+        def run():
             for i in range(n_chunks):
                 model.render_fine_from_hit(ref, coords[i % len(coords)],
                                            hit[i % len(coords)], c2w_t,
                                            qdr_t, dr_t)
-    run()
+        profile_chunks("profile", f"{n_chunks} serving fine chunks of "
+                       f"{chunk} rays", run, n_chunks)
+    return launches, mlp3_launches
+
+
+def cuda_f32(*arrays) -> list:
+    """Each array as a float32 tensor on the card."""
+    return [torch.as_tensor(a, dtype=torch.float32, device="cuda")
+            for a in arrays]
+
+
+def profile_chunks(phase: str, what: str, run, n_chunks: int,
+                   ops: tuple = ()) -> None:
+    """torch.profiler over ``run()`` (``n_chunks`` chunks, under inference
+    mode, after one unprofiled call): device time by kernel and by PyTorch
+    operator, host time by operator, the share of the window the device
+    was busy, and the device time of each operator named in ``ops``."""
+    from torch.profiler import ProfilerActivity, profile
+    with torch.inference_mode():
+        run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+                             ProfilerActivity.CUDA]) as prof, \
+            torch.inference_mode():
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -583,16 +616,16 @@ def profile_chunks(model, ref, c2w, qdr, dr, chunk: int,
     rows = _cuda_kernel_rows(prof)
     busy = sum(r[1] for r in rows)
     rows.sort(key=lambda r: -r[1])
-    ops = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CPU
-           and e.key.startswith("aten::")]
+    events = prof.key_averages()
+    aten = [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CPU
+            and e.key.startswith("aten::")]
 
     def top_ops(attr):
-        ops.sort(key=lambda e: -getattr(e, attr))
+        aten.sort(key=lambda e: -getattr(e, attr))
         return [{"op": e.key, "us_per_chunk": getattr(e, attr) / n_chunks,
-                 "calls_per_chunk": e.count / n_chunks} for e in ops[:8]]
-    emit({"phase": "profile",
-          "what": f"{n_chunks} serving fine chunks of {chunk} rays",
+                 "calls_per_chunk": e.count / n_chunks} for e in aten[:8]]
+    emit({"phase": phase, "what": what,
           "wall_us_per_chunk": wall_us / n_chunks,
           "device_busy_us_per_chunk": busy / n_chunks,
           "device_busy_share": busy / wall_us,
@@ -601,7 +634,10 @@ def profile_chunks(model, ref, c2w, qdr, dr, chunk: int,
                            "count_per_chunk": c / n_chunks}
                           for k, t, c in rows[:8]],
           "top_ops_device": top_ops("self_device_time_total"),
-          "top_ops_host": top_ops("self_cpu_time_total")})
+          "top_ops_host": top_ops("self_cpu_time_total"),
+          "ops_device_us_per_chunk": {
+              e.key: e.self_device_time_total / n_chunks for e in events
+              if e.key in ops}})
 
 
 def cuda_vs_cpu() -> None:
@@ -641,7 +677,7 @@ TRAIN_STEPS = 6          # 1 warm-up + 5 timed
 
 
 def timed_training(phase: str, build, fit, params, finish,
-                   meta: dict) -> tuple:
+                   meta: dict, launches_per_step: int = 2) -> tuple:
     """A trainer from ``build(on_step)``, ``fit(trainer)`` of TRAIN_STEPS
     steps, then ``finish(trainer)`` (save, validate; its dict joins the
     phase's line).  ms/step is the median of the CUDA-event intervals
@@ -650,8 +686,9 @@ def timed_training(phase: str, build, fit, params, finish,
     the scenes on the card).  Asserts finite losses, that every tensor of
     ``params(trainer)`` ((name, tensor) pairs, kept between build and fit)
     moved and the mlp2 launches per step (one ``out_geometry_fc`` launch
-    per pass: coarse and fine), all ``lanes``.  ``meta`` describes the
-    recipe in the phase's line.  Returns (trainer, row, steps)."""
+    per pass: ``launches_per_step``, coarse and fine by default), all
+    ``lanes``.  ``meta`` describes the recipe in the phase's line.  Returns
+    (trainer, row, steps)."""
     steps = []
 
     def on_step(step, metrics):
@@ -703,9 +740,10 @@ def timed_training(phase: str, build, fit, params, finish,
     if still:
         raise AssertionError(f"{phase}: parameters unchanged after "
                              f"{TRAIN_STEPS} steps: {still}")
-    if launches != [2] * TRAIN_STEPS:
+    if launches != [launches_per_step] * TRAIN_STEPS:
         raise AssertionError(f"{phase}: mlp2 launches per step {launches}, "
-                             f"expected 2 (coarse and fine out_geometry_fc)")
+                             f"expected {launches_per_step} (one "
+                             f"out_geometry_fc per pass)")
     for s in steps:
         assert_specialised(f"{phase} step {s['step']}", s["mlp2_launches"],
                            s["variants"])
@@ -1598,8 +1636,336 @@ def mv_ft_cuda_vs_cpu() -> None:
                                  f"limit {bad}")
 
 
+# ---------------------------------------------------------------------------
+# the renderer's other modes: DINER, the light coarse pass, cube faces
+# ---------------------------------------------------------------------------
+
+MODES_CHUNK = 4096
+RENDER_CUBES_OUT = "data/chip_smoke_render_cubes"
+AB_OUT = "data/chip_smoke_ab"
+# bench.py --diner: the serving flags with the coarse colour head, whose
+# colours are the frame
+DINER_FLAGS = dict(coarse_geometry_only=False)
+
+
+def mode_frames() -> dict:
+    """512x1024 frames at 4096-ray chunks from bench.py's inputs: DINER
+    (the serving flags with the coarse colour head, coarse_lowres 1,
+    mvs_uncert 0.04) from 128 candidates, then with a 64-sample uniform
+    pass merged, and a light-coarse frame (serving flags).  One mlp2
+    launch per chunk pass: 128, 256 and 128 a frame.  Then a profile of
+    DINER chunks.  Returns {run: mlp2 launches}."""
+    ref_info, c2w, qdr = bench_inputs(H, W, DH, DW)
+    dr = ref_info["depth_range"]
+    n_chunks = H * W // MODES_CHUNK
+    diner = NeuralRayGenRenderer(
+        height=H, width=W, depth_hw=(DH, DW),
+        **preset_kwargs("serving", **DINER_FLAGS), device="cuda",
+        generator=torch.Generator().manual_seed(0))
+    ref = full_render.prepare_ref_data(diner, ref_info)
+    ref["mvs_uncert"] = torch.full_like(ref["mvs_depth"], 0.04)
+    light = NeuralRayGenRenderer(
+        height=H, width=W, depth_hw=(DH, DW), light_coarse=True,
+        **preset_kwargs("serving"), device="cuda",
+        generator=torch.Generator().manual_seed(0))
+    ref_light = full_render.prepare_ref_data(light, ref_info)
+    meta = {"chunk": MODES_CHUNK, "dtype": "bfloat16", "samples": 64}
+    runs = {
+        "diner": (diner, ref, dict(mode="diner", n_candidates=128),
+                  n_chunks),
+        "diner_mu64": (diner, ref, dict(mode="diner", n_candidates=128,
+                                        n_uniform=64), 2 * n_chunks),
+        "light_coarse": (light, ref_light, {}, n_chunks)}
+    launches = {}
+    for run, (model, rd, kw, expected) in runs.items():
+        row, _ = frame_run("mode_frame", run, lambda: full_render
+                           .render_image_device(model, rd, c2w, qdr, dr,
+                                                chunk=MODES_CHUNK, **kw),
+                           expected, {**meta, **kw})
+        launches[run] = row["mlp2_launches"]
+    # the sampler's operators (topk, sort, erf) over 4 DINER chunks
+    c2w_t, qdr_t, dr_t = cuda_f32(c2w, qdr, dr)
+    coords = imgs_info.full_image_coords(H, W, torch.device("cuda")).reshape(
+        -1, 1, MODES_CHUNK, 2)[n_chunks // 2:][:4]
+
+    def run():
+        for c in coords:
+            diner.render_rays_diner(ref, c, c2w_t, qdr_t, dr_t)
+    profile_chunks("mode_profile", f"4 DINER chunks of {MODES_CHUNK} rays",
+                   run, 4, ops=("aten::topk", "aten::sort", "aten::erf",
+                                "aten::cumprod"))
+    return launches
+
+
+def render_cubes_cli() -> int:
+    """``tools.render_cubes`` at 512x1024 (depth 256x512): 1 scene, the
+    query view's 6 faces of 256x256, the renderer's exact flags, 4096-ray
+    chunks: finite per-face metrics and 6 x 16 chunks x 2 passes = 192
+    mlp2 launches, all ``lanes``.  Returns the launches."""
+    fused_mlp.reset_launches()
+    t0 = time.perf_counter()
+    summary = render_cubes.main(["--height", str(H), "--width", str(W),
+                                 "--depth-height", str(DH), "--depth-width",
+                                 str(DW), "--num", "1", "--out",
+                                 RENDER_CUBES_OUT, "--device", "cuda"])
+    seconds = time.perf_counter() - t0
+    count, count3 = fused_mlp.MLP2_LAUNCHES, fused_mlp.MLP3_LAUNCHES
+    variants = dict(fused_mlp.VARIANT_LAUNCHES)
+    expected = 6 * -(-(H // 2) ** 2 // render_cubes.CHUNK) * 2
+    emit({"phase": "render_cubes", "hw": [H, W], "depth_hw": [DH, DW],
+          "face_w": H // 2, "chunk": render_cubes.CHUNK, "faces": 6,
+          "mlp2_launches": count, "mlp3_launches": count3,
+          "variant_launches": variants, "cli_seconds": seconds,
+          "sec_per_face": summary["sec_per_face"], "mean": summary["mean"],
+          "faces_psnr": [f["psnr_nr"] for f in summary["faces"]]})
+    if len(summary["faces"]) != 6 or not all(
+            np.isfinite(v) for f in summary["faces"] for v in f.values()):
+        raise AssertionError(f"render_cubes: {summary}")
+    if count != expected or count3:
+        raise AssertionError(f"render_cubes: mlp2 launched {count} times, "
+                             f"expected {expected}; mlp3 {count3}")
+    assert_specialised("render_cubes", count, variants)
+    return count
+
+
+def ab_quality_cli() -> dict:
+    """``tools.ab_quality`` at 512x1024 (depth 256x512): a renderer trained
+    from scratch under DINER (``--train-mode diner``, no fine heads; 1
+    warm-up and 5 timed steps through ``timed_training``: one mlp2 launch
+    a step, every parameter moved), then the held-out scene's table under
+    ``diner`` and ``diner_mu64`` (2048-ray chunks: 256 and 512 launches):
+    finite PSNR / SSIM.  Returns {what: mlp2 launches}."""
+    argv = ["--height", str(H), "--width", str(W), "--depth-height",
+            str(DH), "--depth-width", str(DW), "--train-mode", "diner",
+            "--steps", str(TRAIN_STEPS), "--num", "1", "--device", "cuda"]
+    args = ab_quality.parse_args(argv)
+    built = {}
+
+    def build(on_step):
+        built["make"], built["model"], trainer, built["stream"] = \
+            ab_quality.build(args, on_step)
+        trainer.cfg.log_interval = 1          # every step reaches on_step
+        return trainer
+
+    def finish(trainer):
+        if any(k.startswith("fine_") for k in trainer.model.state_dict()):
+            raise AssertionError("ab_quality: a DINER model has fine heads")
+        table, launches = {}, {}
+        for mode, expected in (("diner", H * W // 2048),
+                               ("diner_mu64", 2 * H * W // 2048)):
+            args.modes = mode
+            fused_mlp.reset_launches()
+            t0 = time.perf_counter()
+            table.update(ab_quality.evaluate(args, built["make"],
+                                             trainer.model.state_dict()))
+            launches[mode] = {"mlp2": fused_mlp.MLP2_LAUNCHES,
+                              "seconds": time.perf_counter() - t0,
+                              "variants": dict(fused_mlp.VARIANT_LAUNCHES)}
+            if fused_mlp.MLP2_LAUNCHES != expected or \
+                    fused_mlp.MLP3_LAUNCHES:
+                raise AssertionError(f"ab_quality {mode}: mlp2 launched "
+                                     f"{fused_mlp.MLP2_LAUNCHES}, expected "
+                                     f"{expected}")
+            assert_specialised(f"ab_quality {mode}", expected,
+                               launches[mode]["variants"])
+        if not all(np.isfinite(v) for m in table.values()
+                   for v in m.values()):
+            raise AssertionError(f"ab_quality: {table}")
+        return {"table": table, "eval": launches}
+
+    _, row, _ = timed_training(
+        "ab_quality_train", build,
+        lambda t: t.fit(built["stream"], TRAIN_STEPS),
+        lambda t: t.model.state_dict().items(), finish,
+        {"hw": [H, W], "depth_hw": [DH, DW], "train_mode": "diner",
+         "samples": 64, "candidates": 128, "rays": 512},
+        launches_per_step=1)
+    return {"train_per_step": row["mlp2_launches_per_step"][-1],
+            **{m: v["mlp2"] for m, v in row["eval"].items()}}
+
+
+def _cube_face_cam(c2w: np.ndarray, face: int, fw: int) -> tuple:
+    """(w2c (1, 3, 4), K (1, 3, 3)) of cube face ``face`` of the panorama
+    camera ``c2w``, as ``PanoDatabase.cube_cameras`` gives them."""
+    rot = c2w[:, :3].T
+    trans = -rot @ c2w[:, 3]
+    db = PanoDatabase("m3d", np.zeros((1, fw, 2 * fw, 3)),
+                      np.zeros((1, fw, 2 * fw, 1)), rot[None], trans[None])
+    w2c, k = db.cube_cameras(0)
+    return w2c[face:face + 1], k[None]
+
+
+def diner_ambiguous_pixels(model, ref_info: dict, c2w, n_candidates: int,
+                           h: int, w: int) -> torch.Tensor:
+    """(h, w) pixels whose DINER samples float rounding may change
+    (``diner.ambiguous_rays`` on a float64 evaluation on the CPU)."""
+    f64 = lambda t: torch.as_tensor(np.asarray(t), dtype=torch.float64)
+    coords = imgs_info.full_image_coords(h, w).double()
+    cand = render_ops.sample_depth(1, h * w, n_candidates, model.min_depth,
+                                   model.max_depth, False)[0].double()
+    pts, _ = render_ops.depth2points_spherical(
+        coords, cand, f64(c2w), model.directions.cpu().double())
+    depth = f64(ref_info["mvs_depth"])
+    prj = diner_mod.project_depth_info(
+        {"imgs": f64(ref_info["imgs"]), "w2c": f64(ref_info["w2c"]),
+         "mvs_depth": depth, "mvs_uncert": torch.full_like(depth, 0.04)},
+        pts, model.convention)
+    return diner_mod.ambiguous_rays(
+        cand, prj, model.depth_sample_num, 8, model.min_depth,
+        model.max_depth)[0].reshape(h, w)
+
+
+def modes_cuda_vs_cpu() -> None:
+    """At 64x128 (depth 32x64, 64 + 64 samples, float32), the same seeded
+    model and inputs on CUDA through the kernels and on the CPU through
+    the plain versions, each within the frame limit of 2e-3: a DINER frame
+    (128 candidates), a light-coarse frame, a perspective cube face (exact
+    flags, 32x32), a frame with the nearest merged-map gather and a frame
+    with the vis heads (both serving flags, coarse pass at half
+    resolution).
+
+    Pixels where the output is discontinuous in rounding are counted and
+    left out, at most 6% of a frame (the largest share measured on the
+    H100 is 5%): those whose CPU output moves by more than the limit when
+    the query pose moves by 1e-6 or by 1e-7 (the cameras sit on one axis,
+    so there a ray's points lie on a view's longitude seam, where the
+    branch taken can change over a 1e-7 move and not over 1e-6; nearest
+    taps that flip; fine samples in near-empty bins), and for DINER also
+    those whose candidates' selection a float64 evaluation flags
+    (``diner.ambiguous_rays``).  The error over all pixels and the
+    unflagged pixels over the limit are reported too.  Then one DINER
+    training step (``diner_step_cuda_vs_cpu``)."""
+    h, w, dh, dw = 64, 128, 32, 64
+    ref_info, c2w, qdr = bench_inputs(h, w, dh, dw)
+    dr = ref_info["depth_range"]
+    serving = preset_kwargs("serving", compute_dtype="float32")
+    fw = h // 2
+    ys, xs = torch.meshgrid(torch.arange(fw), torch.arange(fw),
+                            indexing="ij")
+    face_coords = torch.stack([xs, ys], -1).reshape(1, -1, 2).float()
+    w2c_face, k_face = _cube_face_cam(c2w, 0, fw)
+
+    def frame(kw):
+        def run(model, ref, device, shift):
+            pose = c2w.copy()
+            pose[:, 3] += shift
+            return full_render.render_image_device(
+                model, ref, pose, qdr, dr, device=device, **kw)
+        return run
+
+    def face(model, ref, device, shift):
+        pose = w2c_face[0].copy()
+        pose[:, 3] += shift
+        t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+        return render_cubes.render_face(model, ref, face_coords.to(device),
+                                        t(pose), t(k_face[0]), t(qdr), t(dr),
+                                        fw)
+
+    cases = {
+        "diner": (dict(serving, **DINER_FLAGS),
+                  frame(dict(mode="diner", n_candidates=128, chunk=256))),
+        "light_coarse": (dict(serving, light_coarse=True),
+                         frame(dict(chunk=256))),
+        "perspective": (preset_kwargs("exact"), face),
+        "gather_nearest": (dict(serving, gather_nearest=True),
+                           frame(dict(chunk=256, coarse_lowres=2))),
+        "use_vis": (dict(serving, use_vis=True),
+                    frame(dict(chunk=256, coarse_lowres=2)))}
+    for name, (flags, run) in cases.items():
+        out, launches = {}, 0
+        for device in ("cuda", "cpu"):
+            model = NeuralRayGenRenderer(
+                height=h, width=w, depth_hw=(dh, dw), **flags, device=device,
+                generator=torch.Generator().manual_seed(3))
+            ref = full_render.prepare_ref_data(model, ref_info,
+                                               device=device)
+            ref["mvs_uncert"] = torch.full_like(ref["mvs_depth"], 0.04)
+            fused_mlp.reset_launches()
+            out[device] = run(model, ref, device, 0.0).cpu()
+            if device == "cuda":
+                launches = fused_mlp.MLP2_LAUNCHES
+                assert_specialised(f"modes_cuda_vs_cpu {name}", launches,
+                                   fused_mlp.VARIANT_LAUNCHES)
+        diff = (out["cuda"] - out["cpu"]).abs().amax(-1)
+        flagged = torch.zeros_like(diff, dtype=torch.bool)
+        for shift in (1e-6, -1e-6, 1e-7, -1e-7):
+            moved = (run(model, ref, "cpu", shift) - out["cpu"]).abs()
+            flagged |= moved.amax(-1) > 2e-3
+        witnessed = int(flagged.sum())
+        if name == "diner":
+            flagged |= diner_ambiguous_pixels(model, ref_info, c2w, 128, h, w)
+        held = torch.where(flagged, 0.0, diff)
+        err = held.max().item()
+        over = torch.nonzero(held > 2e-3)
+        emit({"phase": "modes_cuda_vs_cpu", "case": name,
+              "hw": list(diff.shape), "dtype": "float32",
+              "mlp2_launches_cuda": launches, "max_abs_err_rgb": err,
+              "pixels_flagged": int(flagged.sum()),
+              "pixels_flagged_by_pose_shift": witnessed,
+              "pixels": diff.numel(),
+              "unflagged_over_limit_yx": over[:20].tolist(),
+              "worst_unflagged_yx": divmod(int(held.argmax()),
+                                           diff.shape[1]),
+              "max_abs_err_rgb_all_pixels": diff.max().item(),
+              "pixels_over_limit_all": int((diff > 2e-3).sum()),
+              "rgb_std": out["cpu"].std().item()})
+        if launches == 0 or not err <= 2e-3 or flagged.float().mean() > 0.06:
+            raise AssertionError(f"modes_cuda_vs_cpu {name}: err {err}, "
+                                 f"launches {launches}, flagged "
+                                 f"{int(flagged.sum())}")
+    diner_step_cuda_vs_cpu(h, w, dh, dw)
+
+
+def diner_step_cuda_vs_cpu(h: int, w: int, dh: int, dw: int) -> None:
+    sample = make_three_view_sample(SphereScene.random(8), h, w, 0.5, seed=8)
+    coords = off_seam_coords(np.random.default_rng(8), 256, h, w)
+    cfg = trainer_mod.TrainerConfig(losses=("render", "depth"), seed=8)
+    results = {}
+    for device in ("cuda", "cpu"):
+        model = NeuralRayGenRenderer(
+            height=h, width=w, depth_hw=(dh, dw), depth_sample_num=16,
+            sampling_mode="diner", use_hierarchical_sampling=False,
+            diner_n_candidates=64, diner_n_uniform=8,
+            gather_depth_major=True, device=device,
+            generator=torch.Generator().manual_seed(8))
+        s = {k: v.to(device) for k, v in sample.items()}
+        data = imgs_info.build_render_sample(s, coords.to(device),
+                                             src_for_mvs=False)
+        data["ref_imgs_info"]["mvs_depth"] = resize_linear(
+            s["depth_panos"][list(imgs_info.REF_IDS)], (dh, dw), axes=(1, 2))
+        opt, schedule = trainer_mod.make_optimizer(cfg, model.parameters())
+        step = trainer_mod.make_train_step(lambda b, g: model(b, g), cfg,
+                                           opt, schedule)
+        fused_mlp.reset_launches()
+        metrics = step(data, torch.Generator().manual_seed(8), 0)
+        launches, variants = fused_mlp.MLP2_LAUNCHES, dict(
+            fused_mlp.VARIANT_LAUNCHES)
+        results[device] = (float(metrics["loss"]),
+                           {n: p.grad.detach().cpu()
+                            for n, p in model.named_parameters()}, launches,
+                           variants)
+    (loss_c, grads_c, launches, variants), (loss_p, grads_p, _, _) = \
+        results.values()
+    share, floor = grad_limit_shares(grads_c, grads_p)
+    bad = [n for n, v in share.items() if v > 1]
+    loss_rel = abs(loss_c - loss_p) / abs(loss_p)
+    emit({"phase": "modes_cuda_vs_cpu", "case": "diner_train_step",
+          "hw": [h, w], "depth_hw": [dh, dw], "samples": 16,
+          "candidates": 64, "n_uniform": 8, "rays": 256, "dtype": "float32",
+          "loss_cuda": loss_c, "loss_cpu": loss_p, "loss_rel_err": loss_rel,
+          "mlp2_launches_cuda": launches, "params": len(grads_p),
+          "grad_worst_limit_share": sorted(share.items(),
+                                           key=lambda kv: -kv[1])[:5],
+          "grad_abs_floor": floor, "params_over_limit": bad})
+    assert_specialised("modes_cuda_vs_cpu diner step", launches, variants)
+    if launches != 2 or not loss_rel <= 1e-4 or bad:
+        raise AssertionError(f"modes_cuda_vs_cpu diner step: loss rel "
+                             f"{loss_rel}, launches {launches}, over limit "
+                             f"{bad}")
+
+
 PHASES = ("kernels", "serving", "training", "depth_stack",
-          "depth_training", "render_cli", "video", "mv_ft")
+          "depth_training", "render_cli", "video", "mv_ft", "modes")
 
 
 def main(argv=None) -> int:
@@ -1671,6 +2037,18 @@ def main(argv=None) -> int:
         row["launches_render_mv"] = mv_renders["eval"]
         row3["launches"] += mlp3_mv + mlp3_ft + mlp3_rft + mlp3_rmv
         mv_ft_cuda_vs_cpu()
+    if "modes" in phases:
+        # each path below asserts its own mlp3 count of 0
+        frames = mode_frames()
+        row["launches_diner_frame"] = frames["diner"]
+        row["launches_diner_mu64_frame"] = frames["diner_mu64"]
+        row["launches_light_coarse_frame"] = frames["light_coarse"]
+        row["launches_render_cubes"] = render_cubes_cli()
+        ab = ab_quality_cli()
+        row["launches_ab_quality_train_per_step"] = ab["train_per_step"]
+        row["launches_ab_quality_diner"] = ab["diner"]
+        row["launches_ab_quality_diner_mu64"] = ab["diner_mu64"]
+        modes_cuda_vs_cpu()
     # no path of either package calls mlp3: the main paths launch it 0 times
     # (render_cli asserts its own 0)
     if row3["launches"] != 0:

@@ -1,8 +1,10 @@
 """Spherical geometry for equirectangular (ERP) panoramas.
 
-Port of ``panogrf_tpu/core/sphere.py`` for the ``m3d`` convention (the one
-the renderer and the depth stack use).  ``corner`` pixel mode maps pixel x
-in [0, W-1] onto the full longitude range (the renderer's grid);
+Port of ``panogrf_tpu/core/sphere.py``: the ``m3d`` convention (the one
+the renderer and the depth stack use by default) and the ``replica_test``,
+``residential`` and ``coffee_area`` (alias ``CoffeeArea``) conventions of
+the other datasets.  ``corner`` pixel mode maps pixel x in [0, W-1] onto
+the full longitude range (the renderer's grid);
 ``center`` mode puts pixel x at fraction (x + 0.5) / W (the cost volume's
 pixel-centre grid).  Coordinates live in the trailing axis.
 """
@@ -127,15 +129,92 @@ def _m3d_sph_to_pix(theta, phi):
     return torch.remainder(theta + 0.5 * _PI, _TWO_PI) / _TWO_PI, phi / _PI
 
 
+def _replica_pix_to_sph(fx, fy):
+    return fx * _TWO_PI - _PI, 0.5 * _PI - fy * _PI
+
+
+def _replica_sph_to_cart(theta, phi, r):
+    cp = torch.cos(phi)
+    return r * torch.sin(theta) * cp, -r * torch.sin(phi), \
+        r * torch.cos(theta) * cp
+
+
+def _replica_cart_to_sph(x, y, z, r):
+    return _safe_atan2(x, z), -_safe_asin(y / r)
+
+
+def _replica_sph_to_pix(theta, phi):
+    return torch.remainder(theta + _PI, _TWO_PI) / _TWO_PI, \
+        (0.5 * _PI - phi) / _PI
+
+
+def _residential_pix_to_sph(fx, fy):
+    return _PI * (2.0 * fx - 1.5), _PI * (0.5 - fy)
+
+
+def _residential_sph_to_cart(theta, phi, r):
+    cp = torch.cos(phi)
+    return r * torch.cos(theta) * cp, r * torch.sin(phi), \
+        r * torch.sin(theta) * cp
+
+
+def _residential_cart_to_sph(x, y, z, r):
+    theta = -_safe_atan2(-z, x)
+    # longitudes in (pi/2, pi] wrap down by 2 pi
+    theta = torch.where(theta > 0.5 * _PI, theta - _TWO_PI, theta)
+    return theta, _safe_asin(y / r)
+
+
+def _residential_sph_to_pix(theta, phi):
+    return torch.remainder(theta / _TWO_PI + 0.75, 1.0), 0.5 - phi / _PI
+
+
+def _coffee_pix_to_sph(fx, fy):
+    return _TWO_PI * (1.0 - fx), fy * _PI
+
+
+def _coffee_sph_to_cart(theta, phi, r):
+    sp = torch.sin(phi)
+    return r * sp * torch.cos(theta), r * sp * torch.sin(theta), \
+        r * torch.cos(phi)
+
+
+def _coffee_cart_to_sph(x, y, z, r):
+    theta = _safe_atan2(y, x)
+    theta = torch.where(theta < 0, theta + _TWO_PI, theta)
+    return theta, _safe_acos(z / r)
+
+
+def _coffee_sph_to_pix(theta, phi):
+    return torch.remainder(1.0 - theta / _TWO_PI, 1.0), phi / _PI
+
+
 M3D = SphereConvention("m3d", _m3d_pix_to_sph, _m3d_sph_to_cart,
                        _m3d_cart_to_sph, _m3d_sph_to_pix)
+REPLICA = SphereConvention("replica_test", _replica_pix_to_sph,
+                           _replica_sph_to_cart, _replica_cart_to_sph,
+                           _replica_sph_to_pix)
+RESIDENTIAL = SphereConvention("residential", _residential_pix_to_sph,
+                               _residential_sph_to_cart,
+                               _residential_cart_to_sph,
+                               _residential_sph_to_pix)
+COFFEE_AREA = SphereConvention("coffee_area", _coffee_pix_to_sph,
+                               _coffee_sph_to_cart, _coffee_cart_to_sph,
+                               _coffee_sph_to_pix)
 
-CONVENTIONS: Dict[str, SphereConvention] = {"m3d": M3D}
+CONVENTIONS: Dict[str, SphereConvention] = {
+    "m3d": M3D,
+    "replica_test": REPLICA,
+    "residential": RESIDENTIAL,
+    # the reference's dataset name of the SOMSI CoffeeArea scene
+    "CoffeeArea": COFFEE_AREA,
+    "coffee_area": COFFEE_AREA,
+}
 
 
 def get_convention(name: str) -> SphereConvention:
     try:
         return CONVENTIONS[name]
     except KeyError:
-        raise KeyError(f"unknown sphere convention {name!r}; the port has "
+        raise KeyError(f"unknown sphere convention {name!r}; available: "
                        f"{sorted(CONVENTIONS)}") from None

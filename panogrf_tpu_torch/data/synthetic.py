@@ -6,8 +6,8 @@ with exact distance depth and full photo-consistency between views.  The
 scene and the camera poses are drawn with numpy exactly as the JAX package
 draws them, so a seed gives the same scene in both.  The 3-view sample
 serves renderer and depth training, the V-view sample
-(``make_multi_view_sample``) multi-view MVS training; cube faces come
-with the data slice.
+(``make_multi_view_sample``) multi-view MVS training;
+``render_cube_faces`` traces a view's six perspective cube faces.
 """
 
 from __future__ import annotations
@@ -18,6 +18,8 @@ import numpy as np
 import torch
 
 from panogrf_tpu_torch.core.sphere import SphereConvention, get_convention
+from panogrf_tpu_torch.data.database import (cube_face_rotations,
+                                             cube_intrinsics)
 
 _LIGHT = np.asarray([0.4, 0.8, 0.45])
 
@@ -112,6 +114,35 @@ def render_panorama(scene: SphereScene, cam_pos: torch.Tensor,
     dirs_w = torch.einsum("ij,hwj->hwi", cam_rot, dirs_cam)
     rgb, t = trace_rays(scene, cam_pos, dirs_w)
     return rgb, t[..., None]
+
+
+def render_cube_faces(scene: SphereScene, cam_pos: torch.Tensor,
+                      cam_rot: torch.Tensor, face_w: int) -> tuple:
+    """Ray-trace the six cube faces of a view: faces [F R B L U D] of
+    ``core/cubemap.py``, each a 90-degree pinhole (``cube_intrinsics``)
+    over the align-corners pixel grid.
+
+    :param cam_pos: (3,); cam_rot: (3, 3) camera-to-world rotation of the
+        panorama camera.
+    :return: (rgb (6, fw, fw, 3), z-depth (6, fw, fw, 1): the distance
+        along each face's optical axis).
+    """
+    dev = scene.centers.device
+    k_inv = np.linalg.inv(cube_intrinsics(face_w))
+    u, v = np.meshgrid(np.arange(face_w, dtype=np.float32),
+                       np.arange(face_w, dtype=np.float32))
+    dirs_face = np.einsum("ij,hwj->hwi", k_inv,
+                          np.stack([u, v, np.ones_like(u)], -1))
+    dirs_face /= np.linalg.norm(dirs_face, axis=-1, keepdims=True)
+    dirs_cam = np.einsum("fij,hwj->fhwi", cube_face_rotations(), dirs_face)
+    dirs_w = torch.einsum("ij,fhwj->fhwi", cam_rot, torch.as_tensor(
+        dirs_cam, dtype=torch.float32, device=dev))
+    rgb, t = trace_rays(scene, cam_pos,
+                        dirs_w.reshape(6 * face_w, face_w, 3))
+    cos_axis = torch.as_tensor(dirs_face[..., 2:3], dtype=torch.float32,
+                               device=dev)
+    return (rgb.reshape(6, face_w, face_w, 3),
+            t.reshape(6, face_w, face_w, 1) * cos_axis)
 
 
 def make_three_view_sample(scene: SphereScene, height: int, width: int,

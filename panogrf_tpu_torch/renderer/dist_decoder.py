@@ -1,7 +1,7 @@
 """Mixture-of-logistics hit-probability decoder.
 
-Port of ``panogrf_tpu/renderer/dist_decoder.py`` without the ``vis`` head
-(the shipped renderer configs leave ``use_vis`` off).
+Port of ``panogrf_tpu/renderer/dist_decoder.py``, with the optional
+``vis`` head (``use_vis``; the shipped renderer configs leave it off).
 """
 
 from __future__ import annotations
@@ -80,18 +80,28 @@ class _MLPHead(nn.Sequential):
 
 
 class MixtureLogisticsDistDecoder(nn.Module):
-    """ray feats (..., F) -> (mean (..., 2), var (..., 2), aw (..., 1))."""
+    """ray feats (..., F) -> (mean (..., 2), var (..., 2), aw (..., 1));
+    with ``use_vis`` a fourth head gives the visibility (..., 1) through
+    ``decode_vis``."""
 
-    def __init__(self, feats_dim: int = 32, bias_val: float = 0.05):
+    def __init__(self, feats_dim: int = 32, bias_val: float = 0.05,
+                 use_vis: bool = False):
         super().__init__()
         f = feats_dim
         self.mean_decoder = _MLPHead(f, f, 2, "softplus")
         self.var_decoder = _MLPHead(f, f, 2, "softplus", bias_val)
         self.aw_decoder = _MLPHead(f, f, 1, "sigmoid")
+        if use_vis:
+            self.vis_decoder = _MLPHead(f, f, 1, "sigmoid")
 
     def forward(self, feats: torch.Tensor) -> tuple:
         return (self.mean_decoder(feats), self.var_decoder(feats),
                 self.aw_decoder(feats))
+
+    def decode_vis(self, feats: torch.Tensor) -> torch.Tensor | None:
+        """The visibility head's (..., 1), or None without ``use_vis``."""
+        return self.vis_decoder(feats) if hasattr(self, "vis_decoder") \
+            else None
 
     def predict_mean(self, feats: torch.Tensor) -> torch.Tensor:
         """Expected-depth head of the depth loss: the mixture means."""
@@ -99,15 +109,20 @@ class MixtureLogisticsDistDecoder(nn.Module):
 
 
 def compute_prob(near: torch.Tensor, far: torch.Tensor, mean: torch.Tensor,
-                 var: torch.Tensor, aw: torch.Tensor) -> tuple:
+                 var: torch.Tensor, aw: torch.Tensor,
+                 vis: torch.Tensor | None = None) -> tuple:
     """Logistic-mixture CDF -> (alpha logit, visibility, hit prob).
     ``near``/``far`` broadcast against ``mean``/``var`` (..., 2) once a
-    trailing axis is added."""
+    trailing axis is added; a visibility ``vis`` (..., 1) scales both
+    CDFs."""
     mix = torch.cat([aw, 1.0 - aw], -1)
     near = near[..., None]
     far = far[..., None]
     cdf0 = 0.5 + 0.5 * torch.tanh((near - mean) * var)
     cdf1 = 0.5 + 0.5 * torch.tanh((far - mean) * var)
+    if vis is not None:
+        cdf0 = cdf0 * vis
+        cdf1 = cdf1 * vis
     visibility = torch.sum((1.0 - cdf0) * mix, -1)
     hit_prob = torch.sum((cdf1 - cdf0) * mix, -1)
     eps = 1e-5

@@ -59,10 +59,12 @@ class NeuralRayFtRenderer(nn.Module):
         self.fine_depth_use_all = fine_depth_use_all
         self.use_disp = use_disp
         # read by the borrowed render_by_depth: float32, ray-major rows,
-        # every sample fetched (from ray_feats and img_feats: no merged map)
+        # every sample fetched (from ray_feats and img_feats: no merged
+        # map), bilinear taps, no vis head, no depth spread
         self.compute_dtype = torch.float32
         self.gather_depth_major = False
         self.gather_stride = self.gather_stride_fine = 1
+        self.gather_nearest = self.use_vis = self.render_uncert = False
 
         g = generator if generator is not None \
             else torch.Generator().manual_seed(0)
@@ -89,6 +91,8 @@ class NeuralRayFtRenderer(nn.Module):
 
     # one pass at given sample depths: the gen renderer's
     render_by_depth = NeuralRayGenRenderer.render_by_depth
+    _points = NeuralRayGenRenderer._points
+    _outputs = NeuralRayGenRenderer._outputs
 
     def ray_feats_maps(self) -> torch.Tensor:
         """The trainable features, channel-last (rfn, fh, fw, F)."""

@@ -1,7 +1,8 @@
 """Full-image rendering: per-scene preparation, frames and pose paths.
 
 Port of ``panogrf_tpu/renderer/full_render.py``: ``prepare_ref_data``,
-``render_image_device``, ``render_video_device`` and ``render_image``.
+``render_image_device`` (hierarchical, light-coarse or DINER frames),
+``render_video_device`` and ``render_image``.
 The JAX package maps its chunks with ``lax.map`` inside one compiled
 program; here the chunk loop is a Python loop of eager passes.  The video
 path renders B poses at once: they ride the query axis of each chunk pass
@@ -55,9 +56,12 @@ def _pixel_coords(xs, ys, n_chunks: int, chunk: int) -> torch.Tensor:
 def _render_poses(model: NeuralRayGenRenderer, ref_data: dict, c2w, qn: int,
                   que_depth_range, ref_depth_range, chunk: int,
                   coarse_lowres: int, coarse_chunk: int,
-                  dev: torch.device) -> torch.Tensor:
+                  dev: torch.device, diner: dict | None = None
+                  ) -> torch.Tensor:
     """The chunk loop over ``qn`` poses at once: ``c2w`` (3, 4) for one
-    frame or (qn, 3, 4); returns rgb (qn, H, W, 3) in [0, 1]."""
+    frame or (qn, 3, 4); with ``diner`` (``render_rays_diner``'s counts)
+    each chunk renders by depth-guided sampling; returns rgb
+    (qn, H, W, 3) in [0, 1]."""
     h, w = model.height, model.width
     n = h * w
     if n % chunk:
@@ -70,12 +74,19 @@ def _render_poses(model: NeuralRayGenRenderer, ref_data: dict, c2w, qn: int,
 
     if coarse_lowres == 1:
         for i in range(nc):
-            rgb[:, i] = model.render_rays(
-                ref_data, coords[i].expand(qn, chunk, 2),
-                *args)["pixel_colors_nr_fine"]
+            c = coords[i].expand(qn, chunk, 2)
+            out = model.render_rays_diner(ref_data, c, *args, **diner) \
+                if diner is not None else model.render_rays(ref_data, c,
+                                                            *args)
+            rgb[:, i] = out["pixel_colors_nr_fine" if "pixel_colors_nr_fine"
+                            in out else "pixel_colors_nr"]
         return torch.clamp(rgb.reshape(qn, h, w, 3), 0.0, 1.0)
 
     f = coarse_lowres
+    if diner is not None or model.light_coarse or \
+            not model.use_hierarchical_sampling:
+        raise ValueError("coarse_lowres > 1 needs the hierarchical coarse "
+                         "pass (no DINER, no light_coarse)")
     if h % f or w % f:
         raise ValueError(f"coarse_lowres {f} does not divide {h}x{w}")
     lh, lw = h // f, w // f
@@ -103,12 +114,19 @@ def _render_poses(model: NeuralRayGenRenderer, ref_data: dict, c2w, qn: int,
 def render_image_device(model: NeuralRayGenRenderer, ref_data: dict,
                         que_c2w, que_depth_range, ref_depth_range,
                         chunk: int = 8192, coarse_lowres: int = 1,
-                        coarse_chunk: int = 0,
+                        coarse_chunk: int = 0, mode: str = "hierarchical",
+                        n_candidates: int = 128, n_uniform: int = 0,
+                        contain_uniform: int = 0,
                         device: str | torch.device = "cuda") -> torch.Tensor:
     """Render the whole panorama, ``chunk`` rays at a time.
 
     :param que_c2w: (3, 4); que_depth_range (1, 2); ref_depth_range
         (rfn, 2).
+    :param mode: "hierarchical" (``render_rays``: coarse + fine, or the
+        light coarse pass) or "diner" (``render_rays_diner`` at
+        ``n_candidates``, ``n_uniform`` and ``contain_uniform``,
+        deterministic; ``ref_data`` needs ``mvs_depth`` and
+        ``mvs_uncert``).
     :param coarse_lowres: f > 1 runs the coarse importance pass on an
         (H/f, W/f) grid of the cells' centre pixels and bilinearly
         upsamples its hit probability to drive the full-res fine pass.
@@ -116,9 +134,13 @@ def render_image_device(model: NeuralRayGenRenderer, ref_data: dict,
     :return: rgb (H, W, 3) in [0, 1].
     """
     dev = _on(model, device)
+    if mode not in ("hierarchical", "diner"):
+        raise ValueError(f"unknown mode {mode!r}")
+    diner = dict(n_candidates=n_candidates, n_uniform=n_uniform,
+                 contain_uniform=contain_uniform) if mode == "diner" else None
     return _render_poses(model, ref_data, _tensor(que_c2w, dev), 1,
                          que_depth_range, ref_depth_range, chunk,
-                         coarse_lowres, coarse_chunk, dev)[0]
+                         coarse_lowres, coarse_chunk, dev, diner)[0]
 
 
 @torch.inference_mode()

@@ -1,12 +1,13 @@
 """Ray sampling, projection and compositing for the renderer.
 
-Port of ``panogrf_tpu/renderer/render_ops.py`` (the renderer's hierarchical
-path).  Projections come out point-major (qn, rn, dn, rfn, c), or
-depth-major (qn, dn, rn, rfn, c) with ``out["layout"] == "dnr"``.
+Port of ``panogrf_tpu/renderer/render_ops.py``.  Projections come out
+point-major (qn, rn, dn, rfn, c), or depth-major (qn, dn, rn, rfn, c) with
+``out["layout"] == "dnr"``.  Query rays are spherical (ERP pixels) or
+perspective (``depth2points_perspective``, cube faces).
 
 Stochastic sampling draws from an explicit ``torch.Generator`` on the CPU
-(``uniform``), so a run on the card and a run on the CPU with the same seed
-sample the same depths.
+(``uniform``, ``normal``), so a run on the card and a run on the CPU with
+the same seed sample the same depths.
 """
 
 from __future__ import annotations
@@ -22,6 +23,13 @@ def uniform(generator: torch.Generator, shape: tuple,
     """U[0, 1) float32 draws of ``shape`` from the CPU ``generator``, moved
     to ``device``: every random number of the sampling comes from here."""
     return torch.rand(shape, generator=generator).to(device)
+
+
+def normal(generator: torch.Generator, shape: tuple,
+           device=None) -> torch.Tensor:
+    """Standard-normal float32 draws of ``shape`` from the CPU
+    ``generator``, moved to ``device`` (DINER's Gaussian samples)."""
+    return torch.randn(shape, generator=generator).to(device)
 
 
 def sample_depth(qn: int, rn: int, dn: int, near: float, far: float,
@@ -140,9 +148,38 @@ def depth2points_spherical(coords: torch.Tensor, que_depth: torch.Tensor,
     return pts, que_dir[:, :, None].expand(pts.shape)
 
 
+def coords2rays_perspective(coords: torch.Tensor, w2c: torch.Tensor,
+                            k: torch.Tensor) -> tuple:
+    """Pixel coords of perspective cameras -> world rays.
+
+    :param coords: (qn, rn, 2); w2c (qn, 3, 4); k (qn, 3, 3) intrinsics.
+    :return: (centers (qn, rn, 3), directions (qn, rn, 3) =
+        R^T K^-1 [u, v, 1], unnormalised, so the ray parameter is the
+        z-depth).
+    """
+    rot, trans = w2c[:, :, :3], w2c[:, :, 3]
+    centers = -torch.einsum("qji,qj->qi", rot, trans)
+    hom = torch.cat([coords, torch.ones_like(coords[..., :1])], -1)
+    cam = torch.einsum("qij,qrj->qri", torch.linalg.inv(k), hom)
+    dirs = torch.einsum("qji,qrj->qri", rot, cam)
+    return centers[:, None].expand(dirs.shape), dirs
+
+
+def depth2points_perspective(coords: torch.Tensor, que_depth: torch.Tensor,
+                             w2c: torch.Tensor, k: torch.Tensor) -> tuple:
+    """Perspective twin of ``depth2points_spherical``: points at ray
+    parameter ``que_depth`` (qn, rn, dn) along ``coords2rays_perspective``'s
+    rays.  :return: (que_pts (qn, rn, dn, 3), que_dir (qn, rn, dn, 3)
+    negated unit directions)."""
+    centers, dirs = coords2rays_perspective(coords, w2c, k)
+    pts = centers[:, :, None] + dirs[:, :, None] * que_depth[..., None]
+    que_dir = -dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
+    return pts, que_dir[:, :, None].expand(pts.shape)
+
+
 def _strided_rows(merged: torch.Tensor, cam: torch.Tensor, shp: tuple,
                   ax: int, s: int, convention: SphereConvention, h: int,
-                  w: int) -> torch.Tensor:
+                  w: int, nearest: bool) -> torch.Tensor:
     """Fetch merged-map rows at every ``s``-th sample along axis ``ax`` of
     the (qn, a, b) point grid and lerp the rows in between; the trailing
     partial group extrapolates from its left row.  :return: (pn, rfn, c).
@@ -155,7 +192,8 @@ def _strided_rows(merged: torch.Tensor, cam: torch.Tensor, shp: tuple,
     idx[ax] = slice(0, dn, s)
     xy_sub, _ = convention.project_to_pixels(cam5[tuple(idx)], h, w)
     xy_sub_vm = xy_sub.reshape(-1, rfn, 2).transpose(0, 1)
-    g = interpolate_feats_pointmajor(merged, xy_sub_vm, h, w)
+    g = interpolate_feats_pointmajor(merged, xy_sub_vm, h, w,
+                                     nearest=nearest)
     c = g.shape[-1]
     gshp = list(shp)
     gshp[ax] = kk
@@ -176,12 +214,14 @@ def project_points_dict(ref_data: dict, que_pts: torch.Tensor,
                         convention: SphereConvention,
                         que_dir: torch.Tensor,
                         depth_major: bool = False,
-                        gather_stride: int = 1) -> dict:
+                        gather_stride: int = 1,
+                        gather_nearest: bool = False) -> dict:
     """Project query points into every reference ERP view and gather.
 
     With ``merged_full`` in ``ref_data`` (fast gather) each (sample, view)
     fetches one row of the full-res [rgb | ray feats | img feats | stats]
-    map, at every ``gather_stride``-th sample only when the stride is > 1;
+    map (its 2x2 window, or its nearest pixel with ``gather_nearest``),
+    at every ``gather_stride``-th sample only when the stride is > 1;
     otherwise rgb comes from ``imgs`` and the features from the 1/4-res
     ``merged_feats``, or, without that map (the ft renderer), from
     ``ray_feats`` and ``img_feats``, each at its own resolution.
@@ -227,10 +267,11 @@ def project_points_dict(ref_data: dict, que_pts: torch.Tensor,
             shp = (qn, dn, rn) if depth_major else (qn, rn, dn)
             allf = _strided_rows(ref_data["merged_full"], cam, shp,
                                  1 if depth_major else 2, gather_stride,
-                                 convention, h, w)
+                                 convention, h, w, gather_nearest)
         else:
             allf = interpolate_feats_pointmajor(ref_data["merged_full"],
-                                                xy_vm, h, w)
+                                                xy_vm, h, w,
+                                                nearest=gather_nearest)
         prj_rgb = allf[..., :3]
         prj_ray_feats = allf[..., 3:3 + nd]
         prj_img_feats = allf[..., 3 + nd:3 + nd + ni]
@@ -264,6 +305,28 @@ def project_points_dict(ref_data: dict, que_pts: torch.Tensor,
     return out
 
 
+def project_stats(ref_data: dict, que_pts: torch.Tensor,
+                  convention: SphereConvention) -> dict:
+    """The light coarse pass's projection: each point's distance from every
+    reference camera and one bilinear fetch of the per-scene decoded
+    mixture statistics ``ref_data["stats_coarse"]`` (rfn, H, W, 5 or 6).
+
+    :param que_pts: (qn, rn, dn, 3).
+    :return: ``depth`` (qn, rn, dn, rfn, 1), ``stats`` (qn, rn, dn, rfn, s).
+    """
+    qn, rn, dn, _ = que_pts.shape
+    rfn, h, w, _ = ref_data["imgs"].shape
+    w2c = ref_data["w2c"]
+    cam = torch.einsum("vij,pj->pvi", w2c[:, :, :3],
+                       que_pts.reshape(-1, 3)) + w2c[None, :, :, 3]
+    prj_xy, prj_depth = convention.project_to_pixels(cam, h, w)
+    stats = interpolate_feats_pointmajor(ref_data["stats_coarse"],
+                                         prj_xy.transpose(0, 1), h, w)
+    shape = (qn, rn, dn, rfn, -1)
+    return {"depth": prj_depth[..., None].reshape(shape),
+            "stats": stats.reshape(shape)}
+
+
 def alpha_values2hit_prob(alpha: torch.Tensor) -> torch.Tensor:
     """alpha (qn, rn, dn) -> hit prob via the transmittance cumprod."""
     no_hit = torch.cat([torch.ones_like(alpha[..., :1]),
@@ -279,3 +342,25 @@ def density2outputs(density: torch.Tensor, colors: torch.Tensor,
     return {"hit_prob": hit_prob,
             "pixel_colors": torch.sum(hit_prob[..., None] * colors, 2),
             "render_depth": torch.sum(hit_prob * que_depth, -1)}
+
+
+def merge_composites(depth_a: torch.Tensor, colors_a: torch.Tensor,
+                     density_a: torch.Tensor, depth_b: torch.Tensor,
+                     colors_b: torch.Tensor, density_b: torch.Tensor) -> tuple:
+    """Composite the union of two passes' samples along each ray: the
+    (depth, colour, density) triples of both, sorted by depth (a stable
+    sort, as JAX's, so equal depths keep pass a's sample first) and
+    alpha-composited as one ray.  Both passes must have run the same
+    decoder and aggregation net, so their densities compare.
+
+    :param depth_*: (qn, rn, dn_*); colors_* (qn, rn, dn_*, 3).
+    :return: (que_depth, colors, density, ``density2outputs`` dict) of the
+        sorted union.
+    """
+    z = torch.cat([depth_a, depth_b], -1)
+    colors = torch.cat([colors_a, colors_b], -2)
+    density = torch.cat([density_a, density_b], -1)
+    z, order = torch.sort(z, dim=-1, stable=True)
+    density = torch.gather(density, -1, order)
+    colors = torch.gather(colors, -2, order[..., None].expand(colors.shape))
+    return z, colors, density, density2outputs(density, colors, z)

@@ -136,9 +136,12 @@ def test_bilinear_border_x_matches_jax():
     got = tres.bilinear_sample(torch.tensor(img), torch.tensor(xy),
                                wrap_x=False)
     assert_close(got, want, 1e-6)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tres.bilinear_sample(torch.tensor(img), torch.tensor(xy),
-                             pad_mode="zeros")
+    # the zeros pad mode: points more than a pixel outside the map are 0
+    want = jres.bilinear_sample(jnp.asarray(img), jnp.asarray(xy),
+                                wrap_x=False, pad_mode="zeros")
+    got = tres.bilinear_sample(torch.tensor(img), torch.tensor(xy),
+                               wrap_x=False, pad_mode="zeros")
+    assert_close(got, want, 1e-6)
 
 
 def test_resize_linear_three_axes_matches_jax():

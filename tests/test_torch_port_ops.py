@@ -175,8 +175,10 @@ def test_project_to_pixels_matches_jax_incl_seam_and_poles():
 
 def test_get_convention():
     assert tsphere.get_convention("m3d") is tsphere.M3D
+    assert tsphere.get_convention("replica_test") is tsphere.REPLICA
+    assert tsphere.get_convention("CoffeeArea") is tsphere.COFFEE_AREA
     with pytest.raises(KeyError):
-        tsphere.get_convention("replica_test")
+        tsphere.get_convention("kitti")
 
 
 # ---------------------------------------------------------------------------

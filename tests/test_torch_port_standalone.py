@@ -48,9 +48,10 @@ def test_no_source_file_mentions_jax():
     pattern = re.compile(r"import jax|from jax|flax|panogrf_tpu\.")
     offenders = [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")
                  if pattern.search(p.read_text())]
-    assert len(_modules()) >= 52
-    # the depth stack's, the video slice's, depth training's and the
-    # multi-view and finetuning slice's modules are among them
+    assert len(_modules()) >= 57
+    # the depth stack's, the video slice's, depth training's, the
+    # multi-view and finetuning slice's and the renderer modes' modules
+    # are among them
     assert {f"panogrf_tpu_torch.{m}" for m in (
         "core.cubemap", "nn.resnet", "nn.fusion", "models.unifuse",
         "models.mvs", "models.depth_stack", "ops.cost_volume",
@@ -58,7 +59,9 @@ def test_no_source_file_mentions_jax():
         "train.depth_trainer", "train.losses", "utils.visualize",
         "tools.train_mono", "tools.train_depth", "tools.eval_depth",
         "renderer.sample_utils", "renderer.ft_renderer", "train.ft_losses",
-        "tools.train_ft", "tools.render_ft", "tools.render_mv")} <= \
+        "tools.train_ft", "tools.render_ft", "tools.render_mv",
+        "renderer.diner", "renderer.sph_solver", "data.database",
+        "tools.render_cubes", "tools.ab_quality")} <= \
         set(_modules())
     assert not offenders, offenders
 
