@@ -41,7 +41,14 @@ the wrapper's host cost, then drives the port's two paths at full width
   ``render_cubes`` CLI (six 256x256 cube faces), the ``ab_quality`` CLI
   (6 DINER training steps, then its DINER modes), and DINER,
   light-coarse, cube-face, nearest-gather and vis-head frames and a DINER
-  training step at 64x128 on CUDA against the CPU.
+  training step at 64x128 on CUDA against the CPU;
+* the depth-net variants: the ``train_mono`` CLI with the ERP+TP mono net
+  and on MobileNetV2 at 512x1024, the ``train_depth`` CLI on
+  ``configs/depth/m3d_mvs.yaml`` with CostRegNet and with FNET (6 steps
+  each), one MVS forward with each feature net and ``with_sin``, a
+  512x1024 frame with the renderer's ERP+TP encoders, a small step of each
+  variant and a 64x128 ERP+TP frame on CUDA against the CPU, and the mono
+  recipe's cube-encoder gradients on CUDA and the CPU against float64.
 
 Each path checks that it went through its kernels.  Each phase prints one
 JSON line; any failure raises, so the process exits non-zero.  The last
@@ -75,6 +82,7 @@ from panogrf_tpu_torch.data.synthetic import (SphereScene,
                                               make_multi_view_sample,
                                               make_three_view_sample)
 from panogrf_tpu_torch.models import depth_stack
+from panogrf_tpu_torch.models import fnet as tfnet
 from panogrf_tpu_torch.models import mvs as tmvs
 from panogrf_tpu_torch.models import unifuse as tunifuse
 from panogrf_tpu_torch.nn import blocks as tblocks
@@ -1013,15 +1021,17 @@ def _bn_buffers(module: torch.nn.Module) -> dict:
             if k.endswith(("running_mean", "running_var"))}
 
 
-def depth_train_cli(phase: str, tool, argv: list) -> tuple:
+def depth_train_cli(phase: str, tool, argv: list,
+                    expect_bn: bool = True) -> tuple:
     """A depth-training CLI in process on the card, as its ``main`` runs
     it without the restore: ``build``, ``fit`` of DEPTH_STEPS steps and
     ``save``.  ms/step is the median of the CUDA-event intervals between
     consecutive step ends (each step draws its batch: scene rendering on
     the card and, for MVS, the frozen prior).  Asserts finite losses,
-    that every parameter and every BatchNorm running statistic moved, and
-    that neither MLP kernel launched.  Returns (trainer, batch stream,
-    checkpoint path, mlp2 launches, mlp3 launches)."""
+    that every parameter and every BatchNorm running statistic moved (and
+    that there are some, unless ``expect_bn`` is False), and that neither
+    MLP kernel launched.  Returns (trainer, batch stream, checkpoint path,
+    mlp2 launches, mlp3 launches)."""
     steps = []
 
     def on_step(step, metrics):
@@ -1069,7 +1079,7 @@ def depth_train_cli(phase: str, tool, argv: list) -> tuple:
           "checkpoint": str(path)})
     if len(steps) != DEPTH_STEPS or not all(np.isfinite(losses)):
         raise AssertionError(f"{phase}: losses {losses}")
-    if still or bn_still or not bn0:
+    if still or bn_still or (expect_bn and not bn0):
         raise AssertionError(f"{phase}: unchanged after {DEPTH_STEPS} steps: "
                              f"parameters {still}, BatchNorm {bn_still}")
     if mlp2 or mlp3:
@@ -1153,11 +1163,12 @@ def profile_depth_step(trainer, stream) -> None:
                       for k, t, c in scatter]})
 
 
-def _small_depth_step(device: str, recipe: str) -> dict:
+def _small_depth_step(device: str, recipe: str,
+                      dtype: torch.dtype = torch.float32) -> dict:
     """One training forward and backward of a small recipe on ``device``
-    from seeded weights (random BatchNorm statistics) and inputs made on
-    the CPU: the loss, each parameter's gradient and the BatchNorm
-    running statistics it updated."""
+    in ``dtype`` from seeded weights (random BatchNorm statistics) and
+    inputs made on the CPU: the loss, each parameter's gradient and the
+    BatchNorm running statistics it updated."""
     g = torch.Generator().manual_seed(11)
     if recipe == "mono":
         model = tunifuse.UniFuse()
@@ -1193,24 +1204,37 @@ def _small_depth_step(device: str, recipe: str) -> dict:
                                          "mono_depth", "mono_feat")))
             out["pred_depth"] = out.pop("depth")
             return out
+    return _seeded_step(model, forward, batch, device, dtype, g,
+                        aux_d1=recipe == "mvs")
+
+
+def _seeded_step(model, forward, batch: dict, device: str,
+                 dtype: torch.dtype, g: torch.Generator,
+                 aux_d1: bool) -> dict:
+    """``model`` seeded (random BatchNorm statistics from ``g``), moved to
+    ``device`` and ``dtype`` with ``batch``, then one training forward and
+    backward of the depth trainer's loss: the loss, each parameter's
+    gradient and the updated BatchNorm running statistics, on the CPU in
+    float64."""
     tblocks.init_parameters_(model, torch.Generator().manual_seed(13))
     for m in model.modules():
-        if isinstance(m, torch.nn.BatchNorm2d):
+        if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
             m.running_mean.copy_(torch.randn(m.num_features, generator=g)
                                  * 0.2)
             m.running_var.copy_(torch.rand(m.num_features, generator=g)
                                 + 0.5)
-    model.to(device).train()
-    batch = {k: v.to(device) for k, v in batch.items()}
+    model.to(device, dtype).train()
+    batch = {k: v.to(device, dtype) for k, v in batch.items()}
     trainer = depth_trainer.DepthTrainer(
         model, forward, depth_trainer.DepthTrainConfig(
-            aux_d1_weight=0.5 if recipe == "mvs" else 0.0))
+            aux_d1_weight=0.5 if aux_d1 else 0.0))
     loss = trainer.loss(forward(batch), batch)
     loss.backward()
     return {"loss": loss.item(),
-            "grads": {k: p.grad.detach().cpu()
+            "grads": {k: p.grad.detach().cpu().double()
                       for k, p in model.named_parameters()},
-            "bn": {k: v.cpu() for k, v in _bn_buffers(model).items()}}
+            "bn": {k: v.cpu().double()
+                   for k, v in _bn_buffers(model).items()}}
 
 
 def depth_train_cuda_vs_cpu() -> None:
@@ -1228,31 +1252,56 @@ def depth_train_cuda_vs_cpu() -> None:
     each other's seam."""
     for recipe in ("mono", "mvs"):
         cu, cp = (_small_depth_step(d, recipe) for d in ("cuda", "cpu"))
-        loss_rel = abs(cu["loss"] - cp["loss"]) / abs(cp["loss"])
-        floor = 1e-6 * max(g.norm().item() for g in cp["grads"].values())
-        share = {k: (cu["grads"][k] - g).norm().item()
-                 / (1e-3 * g.norm().item() + floor)
+        compare_steps("depth_train_cuda_vs_cpu", {"recipe": recipe}, cu, cp)
+
+
+def compare_steps(phase: str, meta: dict, cu: dict, cp: dict,
+                  cp64: dict | None = None) -> None:
+    """A training step on CUDA against the same on the CPU, both float32:
+    the loss within 1e-4 relative, each parameter's gradient within 1e-3
+    of its L2 norm plus 1e-6 of the tree's largest norm (the error's L2
+    norm), each updated BatchNorm statistic within 1e-4 of its scale.
+    With ``cp64`` (the CPU step in float64) a gradient past its limit is
+    still held if the CUDA one is as close to float64 as the CPU one (its
+    error at most twice the CPU's plus the limit): the difference is then
+    float32 rounding of an ill-conditioned gradient, not the card's."""
+    loss_rel = abs(cu["loss"] - cp["loss"]) / abs(cp["loss"])
+    floor = 1e-6 * max(g.norm().item() for g in cp["grads"].values())
+    limit = {k: 1e-3 * g.norm().item() + floor
+             for k, g in cp["grads"].items()}
+    share = {k: (cu["grads"][k] - g).norm().item() / limit[k]
+             for k, g in cp["grads"].items()}
+    max_share = {k: (cu["grads"][k] - g).abs().max().item()
+                 / max(g.abs().max().item(), 1e-12)
                  for k, g in cp["grads"].items()}
-        max_share = {k: (cu["grads"][k] - g).abs().max().item()
-                     / max(g.abs().max().item(), 1e-12)
-                     for k, g in cp["grads"].items()}
-        bn = {k: (cu["bn"][k] - v).abs().max().item()
-              / (1e-4 * max(v.abs().max().item(), 1e-6))
-              for k, v in cp["bn"].items()}
-        bad = [k for k, v in {**share, **bn}.items() if v > 1]
-        emit({"phase": "depth_train_cuda_vs_cpu", "recipe": recipe,
-              "dtype": "float32", "loss_cuda": cu["loss"],
-              "loss_cpu": cp["loss"], "loss_rel_err": loss_rel,
-              "grad_worst_limit_share": sorted(
-                  share.items(), key=lambda kv: -kv[1])[:3],
-              "grad_worst_max_abs_rel": sorted(
-                  max_share.items(), key=lambda kv: -kv[1])[:3],
-              "bn_worst_limit_share": sorted(
-                  bn.items(), key=lambda kv: -kv[1])[:3],
-              "over_limit": bad})
-        if not loss_rel <= 1e-4 or bad:
-            raise AssertionError(f"depth_train_cuda_vs_cpu {recipe}: loss "
-                                 f"rel {loss_rel}, over limit {bad}")
+    bn = {k: (cu["bn"][k] - v).abs().max().item()
+          / (1e-4 * max(v.abs().max().item(), 1e-6))
+          for k, v in cp["bn"].items()}
+    over = [k for k, v in share.items() if v > 1]
+    rounding = {}
+    if cp64 is not None:
+        for k in over:
+            exact = cp64["grads"][k]
+            rounding[k] = {
+                "cuda_vs_f64": (cu["grads"][k] - exact).norm().item(),
+                "cpu_vs_f64": (cp["grads"][k] - exact).norm().item()}
+        over = [k for k in over if rounding[k]["cuda_vs_f64"]
+                > 2 * rounding[k]["cpu_vs_f64"] + limit[k]]
+    bad = over + [k for k, v in bn.items() if v > 1]
+    emit({"phase": phase, **meta, "dtype": "float32",
+          "loss_cuda": cu["loss"], "loss_cpu": cp["loss"],
+          "loss_rel_err": loss_rel,
+          "grad_worst_limit_share": sorted(
+              share.items(), key=lambda kv: -kv[1])[:3],
+          "grad_worst_max_abs_rel": sorted(
+              max_share.items(), key=lambda kv: -kv[1])[:3],
+          "grad_over_limit_float32_rounding": rounding,
+          "bn_worst_limit_share": sorted(
+              bn.items(), key=lambda kv: -kv[1])[:3],
+          "over_limit": bad})
+    if not loss_rel <= 1e-4 or bad:
+        raise AssertionError(f"{phase} {meta}: loss rel {loss_rel}, over "
+                             f"limit {bad}")
 
 
 def depth_eval(mono_ckpt, mvs_ckpt) -> None:
@@ -1964,8 +2013,273 @@ def diner_step_cuda_vs_cpu(h: int, w: int, dh: int, dw: int) -> None:
                              f"{bad}")
 
 
+# ---------------------------------------------------------------------------
+# depth-net variants
+# ---------------------------------------------------------------------------
+
+VARIANT_COMMON = ["--steps", str(DEPTH_STEPS), "--log-interval", "1",
+                  "--vis-interval", "0", "--device", "cuda"]
+VARIANT_RUNS = {
+    # phase: (tool, flags, BatchNorm statistics to move)
+    "variant_train_mono_erp_tp": (train_mono, [
+        "--mono-net", "ERP+TP", "--nrows", "4", "--patch-size", "64",
+        "--height", str(H), "--width", str(W), "--batch", "2", "--name",
+        "chip_smoke_erp_tp"], True),
+    "variant_train_mono_mobilenet": (train_mono, [
+        "--num-layers", "2", "--height", str(H), "--width", str(W),
+        "--batch", "2", "--name", "chip_smoke_mobilenet"], True),
+    "variant_train_mvs_costregnet": (train_depth, [
+        "--cfg", MVS_CFG, "--new-reg3dnet", "--name",
+        "chip_smoke_costregnet"], True),
+    "variant_train_fnet": (train_depth, [
+        "--cfg", MVS_CFG, "--model", "fnet", "--name", "chip_smoke_fnet"],
+        False)}
+FEATURE_NETS = {"Equi": {}, "ERP+TP": dict(feature_net_type="ERP+TP"),
+                "TP": dict(feature_net_type="TP"),
+                "Cube": dict(feature_net_type="Cube"),
+                "with_sin": dict(with_sin=True)}
+
+
+def variant_training() -> int:
+    """Each new recipe through its CLI's ``build``/``fit``/``save``
+    (``depth_train_cli``): ERP+TP mono (4 rows of 64-pixel patches) and
+    UniFuse on MobileNetV2 at 512x1024, batch 2; ``m3d_mvs.yaml`` with
+    CostRegNet on a random mono prior, and with FNET (64 inverse-uniform
+    depths, the cost volume at the full 256x512).  Returns the MLP
+    kernels' launches over the four runs (0 asserted by each)."""
+    launches = 0
+    for phase, (tool, flags, bn) in VARIANT_RUNS.items():
+        _, _, _, m2, m3 = depth_train_cli(phase, tool,
+                                          [*flags, *VARIANT_COMMON],
+                                          expect_bn=bn)
+        launches += m2 + m3
+    return launches
+
+
+def feature_net_forwards() -> None:
+    """One forward of MVSDepthModel at the m3d_mvs shape (256x512, batch
+    2 of 2 views, 64 hypotheses, the UNet3D of base 32; mono depth and
+    features of a random prior at 256x512) with each feature net, the
+    shipped Equi beside them: ms (median of 3 after a warm-up), peak
+    memory, the depth finite and of its shape, no MLP launch."""
+    s = make_three_view_sample(SphereScene.random(9, device="cuda"), DH,
+                               DW, 1.0, seed=9)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    args = (s["rgb_panos"][None, :2].repeat(2, 1, 1, 1, 1),
+            s["rots"][None, :2].repeat(2, 1, 1, 1),
+            s["trans"][None, :2].repeat(2, 1, 1),
+            1.0 + 5.0 * torch.rand(2, DH, DW, 1, device="cuda", generator=g),
+            torch.randn(2, DH // 2, DW // 2, 32, device="cuda", generator=g))
+    for name, kw in FEATURE_NETS.items():
+        model = tmvs.MVSDepthModel(**kw)
+        tblocks.init_parameters_(model, torch.Generator().manual_seed(0))
+        model.to("cuda").eval()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fused_mlp.reset_launches()
+        with torch.inference_mode():
+            out = model(*args)
+            ms, runs = timed_ms(lambda: model(*args))
+        depth = out["depth"]
+        emit({"phase": "variant_feature_net", "feature_net": name, **kw,
+              "hw": [DH, DW], "batch": 2, "views": 2, "hypotheses": 64,
+              "dtype": "float32", "ms_per_forward": ms,
+              "ms_per_forward_runs": runs,
+              "peak_mem_bytes": torch.cuda.max_memory_allocated() - base,
+              "params": sum(p.numel() for p in model.parameters()),
+              "depth_mean": depth.mean().item(),
+              "mlp2_launches": fused_mlp.MLP2_LAUNCHES,
+              "mlp3_launches": fused_mlp.MLP3_LAUNCHES})
+        if tuple(depth.shape) != (2, DH, DW, 1) or \
+                not torch.isfinite(depth).all():
+            raise AssertionError(f"variant_feature_net {name}: depth "
+                                 f"{tuple(depth.shape)}")
+        if fused_mlp.MLP2_LAUNCHES or fused_mlp.MLP3_LAUNCHES:
+            raise AssertionError(f"variant_feature_net {name}: MLP kernels "
+                                 "launched")
+
+
+ERP_TP_FLAGS = dict(local_feature_type="ERP+TP",
+                    init_net_feature_type="ERP+TP", nrows=4, patch_size=64)
+
+
+def erp_tp_frame() -> int:
+    """A 512x1024 frame of the renderer with both encoders ERP+TP (4 rows
+    of 64-pixel patches; the serving preset, bench.py's inputs) at
+    4096-ray chunks: ``prepare_ref`` ms (first call and median of 3), then
+    ``frame_run``: 160 mlp2 launches, all ``lanes``, no mlp3.  Returns the
+    mlp2 launches of the frame."""
+    model = NeuralRayGenRenderer(
+        height=H, width=W, depth_hw=(DH, DW), **preset_kwargs("serving"),
+        **ERP_TP_FLAGS, device="cuda",
+        generator=torch.Generator().manual_seed(0))
+    ref_info, c2w, qdr = bench_inputs(H, W, DH, DW)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = full_render.prepare_ref_data(model, ref_info)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    prep_ms, prep_runs = timed_ms(
+        lambda: full_render.prepare_ref_data(model, ref_info))
+    f = PRESET_COARSE_LOWRES["serving"]
+    chunk = MODES_CHUNK
+    expected = H * W // chunk + (H // f) * (W // f) // chunk
+    row, _ = frame_run(
+        "erp_tp_frame", "serving", lambda: full_render.render_image_device(
+            model, ref, c2w, qdr, ref_info["depth_range"], chunk=chunk,
+            coarse_lowres=f), expected,
+        {**ERP_TP_FLAGS, "chunk": chunk, "coarse_lowres": f,
+         "dtype": "bfloat16", "samples": [64, 64],
+         "prepare_ref_first_ms": first_ms, "prepare_ref_ms": prep_ms,
+         "prepare_ref_ms_runs": prep_runs})
+    return row["mlp2_launches"]
+
+
+def _variant_step(device: str, variant: str,
+                  dtype: torch.dtype = torch.float32) -> dict:
+    """One small training step (``_seeded_step``) of a variant: the ERP+TP
+    mono net (4 rows of 32-pixel patches) and UniFuse on MobileNetV2 at
+    64x128; FNET (16 depths) and the MVS net with CostRegNet, each other
+    feature net or ``with_sin`` on ``_small_depth_step``'s MVS batch at
+    32x64."""
+    g = torch.Generator().manual_seed(11)
+    if variant.startswith("mono"):
+        s = make_three_view_sample(SphereScene.random(11), 64, 128, 0.5,
+                                   seed=11)
+        equi = tunifuse.normalize_imagenet(s["rgb_panos"][:2])
+        batch = {"equi": equi, "gt_depth": torch.clamp(
+            s["depth_panos"][:2], 0, 10)}
+        if variant == "mono_erp_tp":
+            model = tunifuse.ERPTPDepth(nrows=4, patch_size=32)
+
+            def forward(b):
+                return model(b["equi"])
+        else:
+            model = tunifuse.UniFuse(num_layers=2)
+            batch["cube"] = cubemap.equi_to_cube(equi, 32)
+
+            def forward(b):
+                return model(b["equi"], b["cube"])
+        return _seeded_step(model, forward, batch, device, dtype, g, False)
+    # the MVS batch of _small_depth_step, views off each other's seam
+    s = make_three_view_sample(SphereScene.random(12), 32, 64, 1.0, seed=12)
+    trans = s["trans"] + torch.tensor(
+        [[0.11, -0.04, 0.0], [-0.07, 0.05, 0.0], [0.03, 0.09, 0.0]])
+    batch = {"panos": s["rgb_panos"][None, :2].repeat(2, 1, 1, 1, 1),
+             "rots": s["rots"][None, :2].repeat(2, 1, 1, 1),
+             "trans": trans[None, :2].repeat(2, 1, 1),
+             "gt_depth": torch.clamp(s["depth_panos"][1:2], 0, 10)
+             .repeat(2, 1, 1, 1)}
+    if variant == "fnet":
+        model = tfnet.FNetDepthModel(num_depths=16)
+
+        def forward(b):
+            return {"pred_depth": model(b["panos"], b["rots"],
+                                        b["trans"])["depth"]}
+        return _seeded_step(model, forward, batch, device, dtype, g, False)
+    mono_depth = resize_linear(s["depth_panos"][1:2], (64, 128),
+                               axes=(1, 2))
+    batch["mono_depth"] = mono_depth * torch.tensor([0.9, 1.1])[
+        :, None, None, None]
+    batch["mono_feat"] = torch.randn(2, 32, 64, 32, generator=g)
+    kw = (dict(use_new_reg3dnet=True) if variant == "mvs_costregnet"
+          else FEATURE_NETS[variant[4:]])
+    if kw.get("feature_net_type") in ("ERP+TP", "TP"):
+        kw = dict(kw, patch_size=32)
+    model = tmvs.MVSDepthModel(num_hypotheses=8, magnet_num_samples=3,
+                               cnn3d_base=8, **kw)
+
+    def forward(b):
+        out = model(*(b[k] for k in ("panos", "rots", "trans", "mono_depth",
+                                     "mono_feat")))
+        out["pred_depth"] = out.pop("depth")
+        return out
+    return _seeded_step(model, forward, batch, device, dtype, g, True)
+
+
+VARIANT_STEPS = ("mono_erp_tp", "mono_mobilenet", "mvs_costregnet", "fnet",
+                 "mvs_ERP+TP", "mvs_TP", "mvs_Cube", "mvs_with_sin")
+
+
+def variant_cuda_vs_cpu() -> None:
+    """Each variant's small step (``_variant_step``) on CUDA against the
+    CPU, float32, TF32 off, within ``compare_steps``'s limits (the CPU
+    step in float64 tells float32 rounding of an ill-conditioned gradient
+    from the card's); then the ERP+TP renderer's 64x128 serving frame
+    (float32) on CUDA against the CPU within 2e-3."""
+    for variant in VARIANT_STEPS:
+        cu, cp, cp64 = (_variant_step(d, variant, t) for d, t in (
+            ("cuda", torch.float32), ("cpu", torch.float32),
+            ("cpu", torch.float64)))
+        compare_steps("variant_cuda_vs_cpu", {"variant": variant}, cu, cp,
+                      cp64)
+    h, w, dh, dw = 64, 128, 32, 64
+    ref_info, c2w, qdr = bench_inputs(h, w, dh, dw)
+    rgbs = {}
+    for device in ("cuda", "cpu"):
+        model = NeuralRayGenRenderer(
+            height=h, width=w, depth_hw=(dh, dw),
+            **preset_kwargs("serving", compute_dtype="float32"),
+            **dict(ERP_TP_FLAGS, patch_size=32), device=device,
+            generator=torch.Generator().manual_seed(1))
+        ref = full_render.prepare_ref_data(model, ref_info, device=device)
+        fused_mlp.reset_launches()
+        rgbs[device] = full_render.render_image_device(
+            model, ref, c2w, qdr, ref_info["depth_range"], chunk=256,
+            coarse_lowres=2, device=device).cpu()
+        if device == "cuda":
+            launches = fused_mlp.MLP2_LAUNCHES
+            assert_specialised("variant_cuda_vs_cpu erp_tp frame", launches,
+                               fused_mlp.VARIANT_LAUNCHES)
+    err = (rgbs["cuda"] - rgbs["cpu"]).abs().max().item()
+    emit({"phase": "variant_cuda_vs_cpu", "variant": "erp_tp_frame",
+          "hw": [h, w], "dtype": "float32", "mlp2_launches_cuda": launches,
+          "max_abs_err_rgb": err, "rgb_std": rgbs["cpu"].std().item()})
+    if launches == 0 or not err <= 2e-3:
+        raise AssertionError(f"variant_cuda_vs_cpu erp_tp frame: err {err},"
+                             f" launches {launches}")
+
+
+def cube_encoder_float64_check() -> None:
+    """The depth-training check's open question: the mono recipe's small
+    step (``_small_depth_step``) on CUDA in float32, on the CPU in float32
+    and on the CPU in float64.  For each cube-encoder parameter, the
+    largest element error of the CUDA and the CPU float32 gradients
+    against float64 (relative to the parameter's largest float64
+    gradient), and where the CUDA-CPU difference peaks.  The verdict is
+    float32 rounding where the CUDA gradient is no further from float64
+    than twice the CPU's plus 1e-4, else the port's."""
+    cu, cp, cp64 = (_small_depth_step(d, "mono", t) for d, t in (
+        ("cuda", torch.float32), ("cpu", torch.float32),
+        ("cpu", torch.float64)))
+    rows = []
+    for k, exact in cp64["grads"].items():
+        if not k.startswith("cube_encoder."):
+            continue
+        scale = max(exact.abs().max().item(), 1e-30)
+        diff = (cu["grads"][k] - cp["grads"][k]).abs()
+        rows.append({"param": k, "shape": list(exact.shape),
+                     "cuda_vs_cpu": diff.max().item() / scale,
+                     "cuda_vs_f64": (cu["grads"][k] - exact).abs().max()
+                     .item() / scale,
+                     "cpu_vs_f64": (cp["grads"][k] - exact).abs().max()
+                     .item() / scale,
+                     "at": [int(i) for i in np.unravel_index(
+                         int(diff.argmax()), tuple(exact.shape))]})
+    rows.sort(key=lambda r: -r["cuda_vs_cpu"])
+    worst = rows[0]
+    verdict = ("float32 rounding" if worst["cuda_vs_f64"]
+               <= 2 * worst["cpu_vs_f64"] + 1e-4 else "port")
+    emit({"phase": "cube_encoder_float64", "recipe": "mono (UniFuse, "
+          "64x128, batch 2)", "worst": rows[:5], "verdict": verdict,
+          "loss": {"cuda": cu["loss"], "cpu": cp["loss"],
+                   "cpu_f64": cp64["loss"]}})
+
+
 PHASES = ("kernels", "serving", "training", "depth_stack",
-          "depth_training", "render_cli", "video", "mv_ft", "modes")
+          "depth_training", "render_cli", "video", "mv_ft", "modes",
+          "depth_variants")
 
 
 def main(argv=None) -> int:
@@ -2049,6 +2363,13 @@ def main(argv=None) -> int:
         row["launches_ab_quality_diner"] = ab["diner"]
         row["launches_ab_quality_diner_mu64"] = ab["diner_mu64"]
         modes_cuda_vs_cpu()
+    if "depth_variants" in phases:
+        # each run below asserts its own mlp2 and mlp3 counts
+        row["launches_depth_variants"] = variant_training()
+        feature_net_forwards()
+        row["launches_erp_tp_frame"] = erp_tp_frame()
+        variant_cuda_vs_cpu()
+        cube_encoder_float64_check()
     # no path of either package calls mlp3: the main paths launch it 0 times
     # (render_cli asserts its own 0)
     if row3["launches"] != 0:

@@ -1,16 +1,20 @@
 """360-degree MVS depth network (spherical sweep + 3D CNN).
 
-Port of ``panogrf_tpu/models/mvs.py`` for the shipped configuration: the
-``Equi`` feature net, MaGNet-style mono-guided depth hypotheses, the
+Port of ``panogrf_tpu/models/mvs.py``: a feature net (the shipped
+``Equi``, or the ``ERP+TP`` / ``TP`` / ``Cube`` encoders of
+``nn/erp_tp.py``), MaGNet-style depth hypotheses around the mono depth, the
 spherical sweep (:mod:`panogrf_tpu_torch.ops.cost_volume`), the ``UNet3D``
-regulariser, the 1/4-res aux head ``decoders1`` and the mono-feature
-fusion head ``decoders2``.  Parameter names follow the reference layout
-``torch_convert.convert_mvs`` reads (``unet.*``, ``unet3d.encoders.{i}``,
-``unet3d.decoders.{j}``, ``decoders1.conv``, ``decoders2.{i}.conv{1,2}``).
-Channel-last in and out, as in the JAX package.
-
-Not ported yet, and refused: ``use_new_reg3dnet`` (``CostRegNet``), the
-ERP+TP / TP / Cube feature nets and ``with_sin``.
+regulariser (or ``CostRegNet`` with ``use_new_reg3dnet``), the 1/4-res aux
+head ``decoders1`` and the mono-feature fusion head ``decoders2``.
+``with_sin`` appends a sin(latitude) channel to the ``Equi`` net's input
+and to the ``decoders2`` head's.  Parameter names follow the reference
+layout ``torch_convert.convert_mvs`` reads (``unet.*``,
+``unet3d.encoders.{i}``, ``unet3d.decoders.{j}``, ``decoders1.conv``,
+``decoders2.{i}.conv{1,2}``); ``CostRegNet`` sits under ``unet3d`` in
+``convert_cost_reg``'s layout, and the other feature nets, which have no
+converter, under ``unet`` in ``nn/erp_tp.py``'s.  Channel-last in and out,
+as in the JAX package.  The feature net's BatchNorms follow the module's
+mode, as the JAX package passes ``train`` to them.
 """
 
 from __future__ import annotations
@@ -25,8 +29,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from panogrf_tpu_torch.core.sphere import get_convention
-from panogrf_tpu_torch.models.unifuse import NUM_CH_DEC, Equi
-from panogrf_tpu_torch.nn.blocks import ConvBlock2, UNet3D, resize_linear
+from panogrf_tpu_torch.models.unifuse import NUM_CH_DEC, Equi, sin_channel
+from panogrf_tpu_torch.nn.blocks import (ConvBlock2, CostRegNet, UNet3D,
+                                         resize_linear)
+from panogrf_tpu_torch.nn.erp_tp import ENCODERS
 from panogrf_tpu_torch.ops.cost_volume import batched_sweep_cost
 
 
@@ -83,16 +89,9 @@ class MVSDepthModel(nn.Module):
                  mvs_uncertainty: bool = False, wrap: bool = True,
                  with_sin: bool = False, wo_mono_feat: bool = False,
                  cnn3d_base: int = 32, use_new_reg3dnet: bool = False,
-                 feature_net_type: str = "Equi"):
+                 feature_net_type: str = "Equi", nrows: int = 4,
+                 patch_size: int = 64):
         super().__init__()
-        unported = {"use_new_reg3dnet (CostRegNet)": use_new_reg3dnet,
-                    f"feature_net_type {feature_net_type!r}":
-                        feature_net_type != "Equi",
-                    "with_sin": with_sin}
-        for what, asked in unported.items():
-            if asked:
-                raise NotImplementedError(f"MVSDepthModel {what} is not "
-                                          "ported to panogrf_tpu_torch yet")
         self.convention = get_convention(convention_name)
         self.min_depth, self.max_depth = min_depth, max_depth
         self.num_hypotheses = num_hypotheses
@@ -103,16 +102,25 @@ class MVSDepthModel(nn.Module):
         self.group_num = group_num
         self.mvs_uncertainty = mvs_uncertainty
         self.wo_mono_feat = wo_mono_feat
+        self.with_sin = with_sin
 
         feat_ch = NUM_CH_DEC[1]
         d = num_hypotheses
-        self.unet = Equi(wrap=wrap)
+        if feature_net_type == "Equi":
+            self.unet = Equi(wrap=wrap, with_sin=with_sin)
+        else:
+            kw = ({"nrows": nrows, "patch_size": patch_size}
+                  if feature_net_type in ("ERP+TP", "TP") else {})
+            if feature_net_type == "ERP+TP":
+                kw["wrap"] = wrap
+            self.unet = ENCODERS[feature_net_type](out_dim=feat_ch, **kw)
         # group-wise cost: the mean over each of group_num channel groups
-        self.unet3d = UNet3D(group_num if group_num > 1 else feat_ch,
-                             cnn3d_base, 3, 1, wrap)
+        cost_ch = group_num if group_num > 1 else feat_ch
+        self.unet3d = (CostRegNet(cost_ch, wrap) if use_new_reg3dnet
+                       else UNet3D(cost_ch, cnn3d_base, 3, 1, wrap))
         self.decoders1 = nn.Module()
         self.decoders1.conv = nn.Conv2d(d, 1, 1)
-        head_in = d + (0 if wo_mono_feat else feat_ch)
+        head_in = d + (0 if wo_mono_feat else feat_ch) + int(with_sin)
         out_ch = 2 if mvs_uncertainty else 1
         self.decoders2 = nn.ModuleList([
             ConvBlock2(head_in, 32, wrap=wrap, upscale=True, pool=False),
@@ -139,7 +147,9 @@ class MVSDepthModel(nn.Module):
         b, v, h, w, _ = panos.shape
         assert v >= 2
         h4, w4 = h // 4, w // 4
-        feats = self.unet(panos.reshape(b * v, h, w, 3))
+        flat = panos.reshape(b * v, h, w, 3)
+        feats = (self.unet(flat) if isinstance(self.unet, Equi)
+                 else self.unet(flat, self.training))
         cdim = feats.shape[-1]
         feats = feats.reshape(b, v, h4, w4, cdim)
         ref_feats = feats[:, 1]
@@ -181,6 +191,9 @@ class MVSDepthModel(nn.Module):
         if not (self.wo_mono_feat or mono_feat is None):
             x_d3 = resize_linear(mono_feat, (h4, w4), axes=(1, 2))
             head_in = torch.cat([cost_reg, x_d3.permute(0, 3, 1, 2)], 1)
+        if self.with_sin:
+            head_in = torch.cat([head_in, sin_channel(b, h4, w4, panos.device)
+                                 .permute(0, 3, 1, 2)], 1)
         x = head_in
         for block in self.decoders2:
             _, x = block(x)

@@ -7,32 +7,38 @@ Port of ``panogrf_tpu/models/unifuse.py``:
   the ERP decoder, a sigmoid depth head;
 * ``EquiDepth``: UniFuse without the cubemap branch (the ``Equi`` choice
   of ``select_mono``);
+* ``ERPTPDepth``: UniFuse with N gnomonic tangent patches in place of
+  the cube faces (the ``ERP+TP`` ablation; ``core/tangent.py``);
 * ``CubeDepth``: the cube encoder alone, its features resampled to ERP
   and decoded with no fusion (the ``Cube`` ablation);
 * ``Equi``: the ERP-only encoder/decoder that gives the MVS net its
-  32-channel features at 1/4 resolution;
+  32-channel features at 1/4 resolution, optionally with a sin(latitude)
+  input channel (``with_sin``);
 * ``MONO_NETS`` and ``select_mono``, the config-driven factory.
 
-Each mono net has the optional (mu, sigma) ``uncertainty`` head.  Parameter
-names are the reference layout that ``torch_convert.convert_unifuse``,
-``convert_equi_depth`` and ``convert_equi`` read: encoders under
-``equi_encoder``/``cube_encoder`` and the decoder as one flat ModuleList
-``equi_decoder.{i}`` in the reference's registration order (``CubeDepth``,
-which has no reference converter, uses ``EquiDepth``'s decoder layout).
+Each net takes the ResNet-18/34 or MobileNetV2 encoder (``num_layers`` 18,
+34 or 2), and each mono net has the optional (mu, sigma) ``uncertainty``
+head.  Parameter names are the reference layout that
+``torch_convert.convert_unifuse``, ``convert_equi_depth`` and
+``convert_equi`` read: encoders under ``equi_encoder``/``cube_encoder``
+and the decoder as one flat ModuleList ``equi_decoder.{i}`` in the
+reference's registration order.  ``CubeDepth`` and ``ERPTPDepth`` have no
+reference converter: ``CubeDepth`` uses ``EquiDepth``'s decoder layout,
+``ERPTPDepth`` UniFuse's with its patch encoder under ``tp_encoder``.
 Inputs and outputs are channel-last, as in the JAX package; the convs run
 NCHW.  Training mode is the modules' ``train()``: BatchNorm then uses and
-updates batch statistics (``nn/resnet.BatchNorm2d``).  ``ERPTPDepth`` and
-the MobileNetV2 encoder are not ported yet, and ``select_mono`` refuses
-them.
+updates batch statistics (``nn/resnet.BatchNorm2d``).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from panogrf_tpu_torch.core import cubemap
+from panogrf_tpu_torch.core import cubemap, tangent
 from panogrf_tpu_torch.nn.blocks import PadConv2d, upsample2x_nearest
 from panogrf_tpu_torch.nn.fusion import make_fusion
 from panogrf_tpu_torch.nn.resnet import make_encoder
@@ -89,13 +95,14 @@ class ConvELU(nn.Module):
         return F.elu(self.conv(x))
 
 
-def _depth_decoder(wrap: bool, narrow: bool = False) -> dict:
+def _depth_decoder(wrap: bool, enc: tuple, narrow: bool = False) -> dict:
     """The mono nets' decoder convs by reference name: ``upconv_{l}``,
-    ``deconv_{l}`` and the depth head ``depthconv_0``.  ``narrow`` is the
-    JAX package's ``CubeDepth`` ladder, whose ``upconv_{4,3,2}`` give
+    ``deconv_{l}`` and the depth head ``depthconv_0``, on encoder maps of
+    ``enc`` channels.  ``narrow`` is the JAX package's ``CubeDepth`` and
+    ``ERPTPDepth`` ladder, whose ``upconv_{4,3,2}`` give
     ``NUM_CH_DEC[l - 2]`` channels where UniFuse's give
     ``NUM_CH_DEC[l - 1]``."""
-    enc, dec = NUM_CH_ENC, NUM_CH_DEC
+    dec = NUM_CH_DEC
     up_ch = {5: dec[4], 1: dec[0]}
     for lvl in (4, 3, 2):
         up_ch[lvl] = dec[lvl - 2] if narrow else dec[lvl - 1]
@@ -116,6 +123,17 @@ class _MonoDepth(nn.Module):
     5..1."""
 
     order: tuple = EQUI_DEPTH_DECODER_ORDER
+
+    def _fused_decoder(self, fusion_type: str, se_in_fusion: bool,
+                       wrap: bool, narrow: bool = False):
+        """The decoder with a fusion layer at each level (UniFuse's; the
+        narrow ladder is ``ERPTPDepth``'s)."""
+        enc = self.equi_encoder.num_ch_enc
+        mods = _depth_decoder(wrap, enc, narrow)
+        for lvl in (5, 4, 3, 2, 1):
+            mods[f"fusion_{lvl}"] = make_fusion(fusion_type, enc[lvl - 1],
+                                                se_in_fusion)
+        self.equi_decoder = nn.ModuleList(mods[n] for n in self.order)
 
     def _heads(self, max_depth: float, uncertainty: bool, wrap: bool):
         self.max_depth = max_depth
@@ -186,11 +204,7 @@ class UniFuse(_MonoDepth):
         self.out_type = out_type
         self.equi_encoder = make_encoder(num_layers, wrap)
         self.cube_encoder = make_encoder(num_layers, wrap=False)
-        mods = _depth_decoder(wrap)
-        for lvl in (5, 4, 3, 2, 1):
-            mods[f"fusion_{lvl}"] = make_fusion(
-                fusion_type, NUM_CH_ENC[lvl - 1], se_in_fusion)
-        self.equi_decoder = nn.ModuleList(mods[n] for n in self.order)
+        self._fused_decoder(fusion_type, se_in_fusion, wrap)
         self._heads(max_depth, uncertainty, wrap)
 
     def depth_head(self, out: torch.Tensor) -> torch.Tensor:
@@ -223,13 +237,57 @@ class EquiDepth(_MonoDepth):
                  uncertainty: bool = False, num_layers: int = 18):
         super().__init__()
         self.equi_encoder = make_encoder(num_layers, wrap)
-        mods = _depth_decoder(wrap)
+        mods = _depth_decoder(wrap, self.equi_encoder.num_ch_enc)
         self.equi_decoder = nn.ModuleList(mods[n] for n in self.order)
         self._heads(max_depth, uncertainty, wrap)
 
     def forward(self, equi: torch.Tensor) -> dict:
         feats = self.equi_encoder(equi.permute(0, 3, 1, 2))
         return self.decode(lambda level: feats[level - 1])
+
+
+class ERPTPDepth(_MonoDepth):
+    """ERP + tangent-patch mono-depth network: UniFuse with its second
+    branch on ``NPATCHES[nrows]`` gnomonic patches of ``patch_size``
+    pixels (``fov`` degrees) instead of the 6 cube faces, folded into the
+    batch; each level's patch features are resampled to ERP and fused into
+    a decoder of ``CubeDepth``'s narrower ladder, as in the JAX package.
+    ``forward(equi (B, H, W, 3))``."""
+
+    order = UNIFUSE_DECODER_ORDER
+
+    def __init__(self, max_depth: float = 10.0, fusion_type: str = "cee",
+                 se_in_fusion: bool = True, wrap: bool = True,
+                 uncertainty: bool = False, num_layers: int = 18,
+                 nrows: int = 4, patch_size: int = 64, fov: float = 80.0):
+        super().__init__()
+        self.nrows, self.patch_size, self.fov = nrows, patch_size, fov
+        self.equi_encoder = make_encoder(num_layers, wrap)
+        self.tp_encoder = make_encoder(num_layers, wrap=False)
+        self._fused_decoder(fusion_type, se_in_fusion, wrap, narrow=True)
+        self._heads(max_depth, uncertainty, wrap)
+
+    def forward(self, equi: torch.Tensor) -> dict:
+        b, h, w, c = equi.shape
+        ps, fov = self.patch_size, (self.fov, self.fov)
+        equi_feats = self.equi_encoder(equi.permute(0, 3, 1, 2))
+        patches = tangent.equi_to_tangent(equi, self.nrows, (ps, ps), fov)
+        tp_feats = self.tp_encoder(
+            patches.reshape(-1, ps, ps, c).permute(0, 3, 1, 2))
+        fusion = dict(zip(self.order, self.equi_decoder))
+
+        def feat(level: int) -> torch.Tensor:
+            """The level's ERP features fused with its patch features
+            resampled to ERP."""
+            tf = tp_feats[level - 1]
+            f = tf.shape[2]
+            grouped = tf.permute(0, 2, 3, 1).reshape(b, -1, f, f,
+                                                     tf.shape[1])
+            t2e = tangent.tangent_to_equi(grouped, (h >> level, w >> level),
+                                          self.nrows, fov)
+            return fusion[f"fusion_{level}"](equi_feats[level - 1],
+                                             t2e.permute(0, 3, 1, 2))
+        return self.decode(feat)
 
 
 class CubeDepth(_MonoDepth):
@@ -243,7 +301,8 @@ class CubeDepth(_MonoDepth):
                  uncertainty: bool = False, num_layers: int = 18):
         super().__init__()
         self.cube_encoder = make_encoder(num_layers, wrap=False)
-        mods = _depth_decoder(wrap, narrow=True)
+        mods = _depth_decoder(wrap, self.cube_encoder.num_ch_enc,
+                              narrow=True)
         self.equi_decoder = nn.ModuleList(mods[n] for n in self.order)
         self._heads(max_depth, uncertainty, wrap)
 
@@ -254,17 +313,26 @@ class CubeDepth(_MonoDepth):
             _encode_cube(self.cube_encoder, cube), b, h, w))
 
 
+def sin_channel(b: int, h: int, w: int, device) -> torch.Tensor:
+    """sin(latitude from the pole) per row, (B, H, W, 1):
+    sin((arange(h) + 0.5) * pi / h)."""
+    phi = torch.sin((torch.arange(h, dtype=torch.float32, device=device)
+                     + 0.5) * math.pi / h)
+    return phi[None, :, None, None].expand(b, h, w, 1)
+
+
 class Equi(nn.Module):
-    """ERP-only encoder/decoder: (B, H, W, 3) -> (B, H/4, W/4, 32)."""
+    """ERP-only encoder/decoder: (B, H, W, 3) -> (B, H/4, W/4, 32);
+    ``with_sin`` appends the :func:`sin_channel` to the input (a 4-channel
+    first conv)."""
 
     def __init__(self, wrap: bool = True, with_sin: bool = False,
                  num_layers: int = 18):
         super().__init__()
-        if with_sin:
-            raise NotImplementedError("Equi with_sin is not ported to "
-                                      "panogrf_tpu_torch yet")
-        self.equi_encoder = make_encoder(num_layers, wrap)
-        enc, dec = NUM_CH_ENC, NUM_CH_DEC
+        self.with_sin = with_sin
+        self.equi_encoder = make_encoder(num_layers, wrap,
+                                         4 if with_sin else 3)
+        enc, dec = self.equi_encoder.num_ch_enc, NUM_CH_DEC
         mods = {"upconv_5": ConvELU(enc[4], dec[4], wrap)}
         for lvl in (4, 3):
             mods[f"deconv_{lvl}"] = ConvELU(dec[lvl] + enc[lvl - 1],
@@ -276,6 +344,9 @@ class Equi(nn.Module):
                                           for n in EQUI_DECODER_ORDER)
 
     def forward(self, equi: torch.Tensor) -> torch.Tensor:
+        if self.with_sin:
+            equi = torch.cat([equi, sin_channel(*equi.shape[:3],
+                                                equi.device)], -1)
         feats = self.equi_encoder(equi.permute(0, 3, 1, 2))
         d = dict(zip(EQUI_DECODER_ORDER, self.equi_decoder))
         x = _up(d["upconv_5"](feats[4]))
@@ -294,9 +365,9 @@ def select_mono(cfg, mvsnet: bool = False) -> nn.Module:
     ``mono_uncertainty`` head, ``max_depth``, ``use_wrap_padding`` and
     encoder depth.  ``mvsnet`` picks the ``mono_*`` knobs (the frozen mono
     net inside the MVS pipeline); the standalone mono trainer reads
-    ``num_layers``/``fusion`` first.  ``cfg`` is a mapping or an object
-    with those attributes.  ``ERP+TP`` and the MobileNetV2 encoder
-    (``num_layers`` 2) are not ported yet."""
+    ``num_layers``/``fusion`` first; ``ERP+TP`` reads ``nrows``,
+    ``patchsize`` and ``fov``.  ``cfg`` is a mapping or an object with
+    those attributes."""
     get = (cfg.get if hasattr(cfg, "get")
            else lambda k, d=None: getattr(cfg, k, d))
     name = get("mono_net", "UniFuse")
@@ -309,19 +380,20 @@ def select_mono(cfg, mvsnet: bool = False) -> nn.Module:
     else:
         layers = int(get("num_layers", get("mono_num_layers", 18)))
         fusion = str(get("fusion", get("mono_fusion", "cee")))
-    if name == "ERP+TP":
-        raise NotImplementedError("the ERP+TP mono net is not ported to "
-                                  "panogrf_tpu_torch yet")
     if name not in MONO_NETS:
         raise ValueError(f"unknown mono_net {name!r}; available: "
                          f"{MONO_NETS}")
-    if layers == 2:
-        raise NotImplementedError("the MobileNetV2 encoder is not ported to "
-                                  "panogrf_tpu_torch yet")
     if name == "UniFuse":
         return UniFuse(max_depth=max_depth, uncertainty=uncert, wrap=wrap,
                        num_layers=layers, fusion_type=fusion,
                        se_in_fusion=bool(get("se_in_fusion", True)))
+    if name == "ERP+TP":
+        return ERPTPDepth(max_depth=max_depth, uncertainty=uncert, wrap=wrap,
+                          num_layers=layers, fusion_type=fusion,
+                          se_in_fusion=bool(get("se_in_fusion", True)),
+                          nrows=int(get("nrows", 4)),
+                          patch_size=int(get("patchsize", 64)),
+                          fov=float(get("fov", 80.0)))
     cls = EquiDepth if name == "Equi" else CubeDepth
     return cls(max_depth=max_depth, uncertainty=uncert, wrap=wrap,
                num_layers=layers)

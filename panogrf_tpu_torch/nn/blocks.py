@@ -1,11 +1,13 @@
 """ERP-aware conv blocks of the renderer's encoders and the depth stack.
 
-Port of ``panogrf_tpu/nn/blocks.py`` (without ``CostRegNet``).  Modules
-run in NCHW (NCDHW in 3D) inside and are named after the reference
-PyTorch layout that ``panogrf_tpu/utils/torch_convert`` reads: in the
-renderer a wrap-padded 3x3 conv is ``Sequential(WrapPad, Conv2d)`` (keys
-``<name>.1.weight``); in the depth stack it is a conv that pads itself
-(``PadConv2d``, ``WrapConv3D``: keys ``<name>.weight``).
+Port of ``panogrf_tpu/nn/blocks.py``.  Modules run in NCHW (NCDHW in
+3D) inside and are named after the reference PyTorch layout that
+``panogrf_tpu/utils/torch_convert`` reads: in the renderer a wrap-padded
+3x3 conv is ``Sequential(WrapPad, Conv2d)`` (keys ``<name>.1.weight``);
+in the depth stack it is a conv that pads itself (``PadConv2d``,
+``WrapConv3D``: keys ``<name>.weight``).  ``wrap=False`` pads with zeros
+in W too (tangent patches, cube faces).  The BatchNorms of the depth nets
+(``BatchStatsMixin``) follow the JAX package's running-statistics rule.
 ``resize_linear``, ``wrap_pad_2d``, ``upsample2x_nearest`` and
 ``ResUNetLight`` take and return channel-last tensors, as their JAX
 counterparts do.
@@ -89,14 +91,49 @@ def init_parameters_(module: nn.Module, generator: torch.Generator) -> None:
             p.zero_()
 
 
-class WrapPad(nn.Module):
-    """Zero pad in H, circular pad in W (NCHW)."""
+class BatchStatsMixin:
+    """The forward of the port's BatchNorms (``nn/resnet.BatchNorm2d``,
+    :class:`BatchNorm3d`), as the JAX package's: in eval mode it
+    normalises with the running statistics; in training mode with the
+    batch's mean and biased variance, moving the running statistics
+    towards them with momentum 0.9 (eps 1e-5).  Torch's own BatchNorm
+    moves the running variance towards the unbiased batch variance, which
+    differs by n / (n - 1).  ``train`` overrides the module's mode, as the
+    JAX modules' explicit ``train`` argument does."""
 
-    def __init__(self, pad: int):
+    def forward(self, x: torch.Tensor,
+                train: bool | None = None) -> torch.Tensor:
+        if not (self.training if train is None else train):
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        with torch.no_grad():
+            dims = (0, *range(2, x.dim()))
+            var, mean = torch.var_mean(x, dim=dims, unbiased=False)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True,
+                            0.0, self.eps)
+
+
+class BatchNorm3d(BatchStatsMixin, nn.BatchNorm3d):
+    """``nn.BatchNorm3d`` with the JAX package's statistics rule."""
+
+    def __init__(self, channels: int):
+        super().__init__(channels, eps=1e-5, momentum=0.1)
+
+
+class WrapPad(nn.Module):
+    """Zero pad in H, circular pad in W (zero without ``wrap``); NCHW."""
+
+    def __init__(self, pad: int, wrap: bool = True):
         super().__init__()
         self.pad = pad
+        self.wrap = wrap
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.wrap:
+            return F.pad(x, (self.pad,) * 4)
         return _wrap_pad_nchw(x, self.pad, self.pad)
 
 
@@ -104,8 +141,8 @@ class WrapConv(nn.Sequential):
     """Wrap padding + VALID conv (reference keys ``.1.weight``)."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int = 3,
-                 stride: int = 1, bias: bool = True):
-        super().__init__(WrapPad((kernel_size - 1) // 2),
+                 stride: int = 1, bias: bool = True, wrap: bool = True):
+        super().__init__(WrapPad((kernel_size - 1) // 2, wrap),
                          nn.Conv2d(cin, cout, kernel_size, stride,
                                    bias=bias))
 
@@ -121,9 +158,10 @@ class InstanceNorm(nn.InstanceNorm2d):
 class ConvINELU(nn.Module):
     """conv -> instance norm -> ELU (reference module ``conv``)."""
 
-    def __init__(self, cin: int, cout: int, kernel_size: int = 3):
+    def __init__(self, cin: int, cout: int, kernel_size: int = 3,
+                 wrap: bool = True):
         super().__init__()
-        self.conv = WrapConv(cin, cout, kernel_size, bias=True)
+        self.conv = WrapConv(cin, cout, kernel_size, bias=True, wrap=wrap)
         self.bn = InstanceNorm(cout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -133,9 +171,9 @@ class ConvINELU(nn.Module):
 class UpconvINELU(nn.Module):
     """2x bilinear upsample (align corners) + ConvINELU."""
 
-    def __init__(self, cin: int, cout: int):
+    def __init__(self, cin: int, cout: int, wrap: bool = True):
         super().__init__()
-        self.conv = ConvINELU(cin, cout)
+        self.conv = ConvINELU(cin, cout, wrap=wrap)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(upsample2x_bilinear(x, True, axes=(2, 3)))
@@ -145,13 +183,13 @@ class ResidualBlock(nn.Module):
     """Pre-activation residual block, norm-relu-conv3x3 twice (reference
     Sequential indices: IN 0, conv 3, IN 4, conv 7)."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, wrap: bool = True):
         super().__init__()
         c = channels
         self.conv = nn.Sequential(
-            InstanceNorm(c), nn.ReLU(), WrapPad(1),
+            InstanceNorm(c), nn.ReLU(), WrapPad(1, wrap),
             nn.Conv2d(c, c, 3, bias=False),
-            InstanceNorm(c), nn.ReLU(), WrapPad(1),
+            InstanceNorm(c), nn.ReLU(), WrapPad(1, wrap),
             nn.Conv2d(c, c, 3, bias=False))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -161,11 +199,12 @@ class ResidualBlock(nn.Module):
 class BasicBlock(nn.Module):
     """ResNet basic block with instance norm."""
 
-    def __init__(self, cin: int, cout: int, stride: int = 1):
+    def __init__(self, cin: int, cout: int, stride: int = 1,
+                 wrap: bool = True):
         super().__init__()
-        self.conv1 = WrapConv(cin, cout, 3, stride, bias=False)
+        self.conv1 = WrapConv(cin, cout, 3, stride, bias=False, wrap=wrap)
         self.bn1 = InstanceNorm(cout)
-        self.conv2 = WrapConv(cout, cout, 3, bias=False)
+        self.conv2 = WrapConv(cout, cout, 3, bias=False, wrap=wrap)
         self.bn2 = InstanceNorm(cout)
         self.downsample = None
         if stride != 1 or cin != cout:
@@ -244,14 +283,16 @@ def upsample2x_nearest(x: torch.Tensor, axes: Sequence[int] = (1, 2)
 
 
 class PadConv2d(nn.Conv2d):
-    """VALID conv after an explicit (k-1)//2 pad: wrap (circular W, zero
-    H) or zero; NCHW.  Its parameters are the plain ``weight``/``bias``
-    of the reference's converted convs."""
+    """VALID conv after an explicit pad of ``padding`` ((k-1)//2 by
+    default): wrap (circular W, zero H) or zero; NCHW.  Its parameters are
+    the plain ``weight``/``bias`` of the reference's converted convs."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int = 3,
-                 stride: int = 1, bias: bool = True, wrap: bool = True):
-        super().__init__(cin, cout, kernel_size, stride, bias=bias)
-        self.pad = (kernel_size - 1) // 2
+                 stride: int = 1, bias: bool = True, wrap: bool = True,
+                 padding: int | None = None, groups: int = 1):
+        super().__init__(cin, cout, kernel_size, stride, bias=bias,
+                         groups=groups)
+        self.pad = (kernel_size - 1) // 2 if padding is None else padding
         self.wrap = wrap
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -363,3 +404,58 @@ class UNet3D(nn.Module):
             h = torch.cat([up(h, skips[i]), skips[i]], 1)
             _, h = self.decoders[i](h)
         return h
+
+
+class ConvBnLReLU3D(nn.Module):
+    """Wrap-padded 3x3x3 conv (no bias) -> BatchNorm3d -> leaky ReLU 0.01;
+    NCDHW (reference keys ``conv.weight``, ``bn.*``)."""
+
+    def __init__(self, cin: int, cout: int, stride: int = 1,
+                 wrap: bool = True):
+        super().__init__()
+        self.conv = WrapConv3D(cin, cout, 3, stride, bias=False, wrap=wrap)
+        self.bn = BatchNorm3d(cout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.leaky_relu(self.bn(self.conv(x)), 0.01)
+
+
+class UpConvBn3D(ConvBnLReLU3D):
+    """Trilinear resize (align_corners=False) to the skip's (D, H, W), then
+    :class:`ConvBnLReLU3D` (the JAX package's form, not a transposed
+    conv)."""
+
+    def forward(self, x: torch.Tensor, size) -> torch.Tensor:
+        return super().forward(resize_linear(x, tuple(size), axes=(2, 3, 4)))
+
+
+class CostRegNet(nn.Module):
+    """MVSNet-style 3D cost regulariser, the ``use_new_reg3dnet``
+    alternative to :class:`UNet3D`: an 8 -> 16 -> 32 -> 64 strided encoder,
+    a decoder of resizes and convs with additive skips, and a 1-channel
+    head; NCDHW in, (B, 1, D, H, W) out.  Keys follow
+    ``torch_convert.convert_cost_reg`` (``conv{0..7,9,11}.conv.weight``,
+    ``.bn.*``, ``prob.conv.weight``)."""
+
+    def __init__(self, in_channels: int, wrap: bool = True):
+        super().__init__()
+        chans = ((in_channels, 8, 1), (8, 16, 2), (16, 16, 1), (16, 32, 2),
+                 (32, 32, 1), (32, 64, 2), (64, 64, 1))
+        for i, (cin, cout, stride) in enumerate(chans):
+            self.add_module(f"conv{i}", ConvBnLReLU3D(cin, cout, stride,
+                                                      wrap))
+        self.conv7 = UpConvBn3D(64, 32, wrap=wrap)
+        self.conv9 = UpConvBn3D(32, 16, wrap=wrap)
+        self.conv11 = UpConvBn3D(16, 8, wrap=wrap)
+        self.prob = nn.Module()
+        self.prob.conv = WrapConv3D(8, 1, 3, bias=False, wrap=wrap)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        conv0 = self.conv0(x)
+        conv2 = self.conv2(self.conv1(conv0))
+        conv4 = self.conv4(self.conv3(conv2))
+        h = self.conv6(self.conv5(conv4))
+        h = conv4 + self.conv7(h, conv4.shape[2:])
+        h = conv2 + self.conv9(h, conv2.shape[2:])
+        h = conv0 + self.conv11(h, conv0.shape[2:])
+        return self.prob.conv(h)

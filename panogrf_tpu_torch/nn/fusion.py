@@ -3,7 +3,9 @@
 Port of ``panogrf_tpu/nn/fusion.py``.  NCHW; parameter names follow the
 reference layout that ``torch_convert._convert_cee`` and
 ``convert_unifuse`` read (``res_conv1``, ``res_bn1``, ``selayer.fc.0``,
-``conv_e2c.0``, ...).
+``conv_e2c.0``, ...).  Each layer's forward takes the JAX package's
+``train`` argument: None follows the module's mode, True or False sets
+whether the CEE layer's BatchNorms use batch statistics.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ class Concat(nn.Module):
         super().__init__()
         self.conv = nn.Conv2d(2 * channels, channels, 1, bias=False)
 
-    def forward(self, equi_feat, c2e_feat):
+    def forward(self, equi_feat, c2e_feat, train=None):
         return F.relu(self.conv(torch.cat([equi_feat, c2e_feat], 1)))
 
 
@@ -38,7 +40,7 @@ class BiProj(nn.Module):
                                       nn.ReLU())
         self.conv_mask = nn.Sequential(nn.Conv2d(2 * c, 1, 1), nn.Sigmoid())
 
-    def forward(self, equi_feat, c2e_feat):
+    def forward(self, equi_feat, c2e_feat, train=None):
         e = self.conv_e2c(equi_feat)
         c = self.conv_c2e(c2e_feat)
         return equi_feat + c * self.conv_mask(torch.cat([e, c], 1))
@@ -72,10 +74,10 @@ class CEELayer(nn.Module):
         self.selayer = SELayer(2 * c) if use_se else None
         self.conv = nn.Conv2d(2 * c, c, 1, bias=False)
 
-    def forward(self, equi_feat, c2e_feat):
+    def forward(self, equi_feat, c2e_feat, train=None):
         x = torch.cat([equi_feat, c2e_feat], 1)
-        x = F.relu(self.res_bn1(self.res_conv1(x)))
-        shortcut = self.res_bn2(self.res_conv2(x))
+        x = F.relu(self.res_bn1(self.res_conv1(x), train))
+        shortcut = self.res_bn2(self.res_conv2(x), train)
         x = torch.cat([equi_feat, c2e_feat + shortcut], 1)
         if self.selayer is not None:
             x = self.selayer(x)

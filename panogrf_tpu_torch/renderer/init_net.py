@@ -1,8 +1,11 @@
 """Ray-feature initialization net and visibility encoder.
 
-Port of ``panogrf_tpu/renderer/init_net.py`` (ERP feature type).  The
-frozen depth stack is not a submodule: callers pass ``mvs_depth`` in.
-Inputs and outputs are channel-last.
+Port of ``panogrf_tpu/renderer/init_net.py``.  The image encoder is a
+``ResUNetLight`` (``feature_type`` "ERP") or the dual ERP + tangent-patch
+``nn/erp_tp.ERPTPEncoder`` ("ERP+TP"), whose fusion BatchNorms always use
+their running statistics here, as the JAX init net calls it without
+``train``.  The frozen depth stack is not a submodule: callers pass
+``mvs_depth`` in.  Inputs and outputs are channel-last.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from torch import nn
 
 from panogrf_tpu_torch.nn.blocks import (ResUNetLight, ResidualBlock,
                                          WrapConv, resize_linear)
+from panogrf_tpu_torch.nn.erp_tp import ERPTPEncoder
 
 
 def normalize_inverse_depth(depth: torch.Tensor, min_depth: float,
@@ -42,12 +46,17 @@ class CostVolumeInitNet(nn.Module):
     """(ref imgs, mvs depth) -> ray features at 1/4 of ``depth_hw``."""
 
     def __init__(self, depth_hw: tuple = (256, 512), min_depth: float = 0.1,
-                 max_depth: float = 10.0, feat_dim: int = 32):
+                 max_depth: float = 10.0, feat_dim: int = 32,
+                 feature_type: str = "ERP", nrows: int = 4,
+                 patch_size: int = 64):
         super().__init__()
         self.depth_hw = tuple(depth_hw)
         self.min_depth = min_depth
         self.max_depth = max_depth
-        self.res_net = ResUNetLight(feat_dim, (2, 3, 6), 32)
+        self.res_net = (ERPTPEncoder(feat_dim, (2, 3, 6), 32, nrows,
+                                     patch_size)
+                        if feature_type == "ERP+TP"
+                        else ResUNetLight(feat_dim, (2, 3, 6), 32))
         self.depth_conv = _ConvResConv(1, 32)
         self.out_conv = _ConvResConv(feat_dim + 32, feat_dim)
 

@@ -8,7 +8,11 @@ statistics alone), DINER's depth-guided single pass (``render_rays_diner``,
 ``sampling_mode="diner"``), perspective query cameras (``perspec_cam``,
 cube faces), and the training forward with its depth-loss head and, with
 ``use_self_hit_prob``, the query view's own hit probabilities of the
-consistency loss.  Submodule
+consistency loss.  ``local_feature_type`` / ``init_net_feature_type``
+"ERP+TP" swap the image encoder's and the init net's ``ResUNetLight`` for
+the dual ERP + tangent-patch encoder (``nrows``, ``patch_size``), whose
+fusion BatchNorms keep their running statistics under training, as in
+the JAX package.  Submodule
 and parameter names follow the reference PyTorch state dict, so
 ``load_state_dict`` takes a reference renderer checkpoint and
 ``utils.from_jax.load_jax_params`` takes the JAX package's parameter tree.
@@ -28,6 +32,7 @@ from torch import nn
 from panogrf_tpu_torch.core.sphere import get_convention
 from panogrf_tpu_torch.nn.blocks import (ResUNetLight, init_parameters_,
                                          resize_linear)
+from panogrf_tpu_torch.nn.erp_tp import ERPTPEncoder
 from panogrf_tpu_torch.ops.resample import interpolate_feats
 from panogrf_tpu_torch.renderer import render_ops as ro
 from panogrf_tpu_torch.renderer.agg_net import DefaultAggregationNet
@@ -48,7 +53,8 @@ class NeuralRayGenRenderer(nn.Module):
     recipe's and the other modes': ``sampling_mode`` "hierarchical" or
     "diner" with its ``diner_*`` counts, ``light_coarse`` with
     ``coarse_proxy_samples``, ``gather_nearest``, ``use_vis``,
-    ``render_uncert``)."""
+    ``render_uncert``, and the encoders' ``local_feature_type`` /
+    ``init_net_feature_type`` with ``nrows`` and ``patch_size``)."""
 
     def __init__(self, *, convention_name: str = "m3d", height: int = 512,
                  width: int = 1024, depth_hw: tuple = (256, 512),
@@ -69,6 +75,9 @@ class NeuralRayGenRenderer(nn.Module):
                  sampling_mode: str = "hierarchical",
                  diner_n_candidates: int = 128, diner_n_gaussian: int = 8,
                  diner_n_uniform: int = 0, diner_contain_uniform: int = 0,
+                 local_feature_type: str = "ERP",
+                 init_net_feature_type: str = "ERP", nrows: int = 4,
+                 patch_size: int = 64,
                  device: str | torch.device = "cuda",
                  generator: torch.Generator | None = None):
         dev = resolve_device(device)
@@ -101,9 +110,14 @@ class NeuralRayGenRenderer(nn.Module):
         self.diner_n_uniform = diner_n_uniform
         self.diner_contain_uniform = diner_contain_uniform
 
-        self.image_encoder = ResUNetLight(32, (1, 2, 6), 16)
+        self.image_encoder = (
+            ERPTPEncoder(32, (1, 2, 6), 16, nrows, patch_size)
+            if local_feature_type == "ERP+TP"
+            else ResUNetLight(32, (1, 2, 6), 16))
         self.init_net = CostVolumeInitNet(depth_hw, mvs_min_depth,
-                                          mvs_max_depth)
+                                          mvs_max_depth,
+                                          feature_type=init_net_feature_type,
+                                          nrows=nrows, patch_size=patch_size)
         self.vis_encoder = DefaultVisEncoder()
         self.dist_decoder = MixtureLogisticsDistDecoder(use_vis=use_vis)
         self.agg_net = DefaultAggregationNet(

@@ -2,7 +2,8 @@
 
     python -m panogrf_tpu_torch.tools.train_depth [--cfg <yaml>] \\
         [--steps N] [--height H --width W] [--views V] \\
-        [--mono-ckpt F] [--mvs-uncertainty] [--device cpu]
+        [--mono-ckpt F] [--mvs-uncertainty] [--new-reg3dnet] \\
+        [--model mvs|fnet] [--device cpu]
 
 Port of the repo's ``tools/train_depth.py``.  A recipe yaml (``--cfg``,
 e.g. ``configs/depth/m3d_mvs.yaml``) supplies height, width, views,
@@ -14,21 +15,24 @@ ordered [0, 1] for 2 views and [0, V-1, 1, ..., V-2] otherwise, so index
 1 is the reference view whose depth (clipped to ``--max-depth``) is
 supervised and every other index a source.  The frozen UniFuse prior runs
 on the reference view in eval mode under ``torch.inference_mode`` and
-gives the MVS net its mono depth and features.  The MVS net trains with
-the sin-weighted L1 (Gaussian NLL with ``--mvs-uncertainty``) plus half
-the L1 of its 1/4-res head, Adam at a constant lr behind an element-wise
-gradient clip of 1 (``train/depth_trainer.py``).
+gives the MVS net its mono depth and features.  The MVS net (its 3D
+UNet, or MVSNet's ``CostRegNet`` with ``--new-reg3dnet``) trains with the
+sin-weighted L1 (Gaussian NLL with ``--mvs-uncertainty``) plus half the
+L1 of its 1/4-res head, Adam at a constant lr behind an element-wise
+gradient clip of 1 (``train/depth_trainer.py``).  ``--model fnet`` trains
+the single-UNet ``FNetDepthModel`` instead, on views 0 and 1 with
+``--hypotheses`` inverse-uniform depths and no mono prior.
 
 ``--mono-ckpt`` is a mono checkpoint file of ``train_mono`` (or any
 reference-layout UniFuse file, or an MVS file's ``d_net.*``); without it
 the prior has random weights.  Checkpoints land in
-``data/depth_model/<name>/checkpoint_<step>.pth`` with the prior under
-``d_net.*``.  The run resumes from the newest checkpoint of ``<name>``,
-then prints the ERP depth metrics of 2 more batches.  It runs on the CUDA
-device and raises without one unless ``--device cpu`` is given.
+``data/depth_model/<name>/checkpoint_<step>.pth`` with the MVS net's
+prior under ``d_net.*``.  The run resumes from the newest checkpoint of
+``<name>``, then prints the ERP depth metrics of 2 more batches.  It runs
+on the CUDA device and raises without one unless ``--device cpu`` is
+given.
 
-Not ported yet, and refused with an error: ``--model fnet``,
-``--new-reg3dnet``, ``--mesh`` and ``--shards``.
+Not ported yet, and refused with an error: ``--mesh`` and ``--shards``.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ from panogrf_tpu_torch.data.synthetic import (SphereScene,
 from panogrf_tpu_torch.models.depth_stack import (extract_dnet,
                                                   load_reference_state,
                                                   read_checkpoint)
+from panogrf_tpu_torch.models.fnet import FNetDepthModel
 from panogrf_tpu_torch.models.mvs import MVSDepthModel
 from panogrf_tpu_torch.models.unifuse import UniFuse, normalize_imagenet
 from panogrf_tpu_torch.nn.blocks import init_parameters_
@@ -79,10 +84,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--hypotheses", type=int, default=64)
     ap.add_argument("--mvs-uncertainty", action="store_true")
     ap.add_argument("--model", default="mvs", choices=["mvs", "fnet"],
-                    help="mvs = 360-MVSNet on the mono prior; fnet is not "
-                         "ported yet")
+                    help="mvs = 360-MVSNet on the mono prior; fnet = the "
+                         "single-UNet cost-volume net, no mono prior")
     ap.add_argument("--new-reg3dnet", action="store_true",
-                    help="CostRegNet regulariser (not ported yet)")
+                    help="MVSNet's CostRegNet regulariser in place of the "
+                         "3D UNet")
     ap.add_argument("--mesh", type=int, default=0, help="not ported yet")
     ap.add_argument("--vis-interval", type=int, default=100,
                     help="write rgb|gt|pred|error turbo sheets every N "
@@ -112,9 +118,7 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def _refuse_unported(args) -> None:
-    for what, asked in {"--model fnet": args.model == "fnet",
-                        "--new-reg3dnet (CostRegNet)": args.new_reg3dnet,
-                        "--mesh (multi-GPU training)": args.mesh,
+    for what, asked in {"--mesh (multi-GPU training)": args.mesh,
                         "--shards (offline shard reader)": args.shards
                         }.items():
         if asked:
@@ -147,7 +151,8 @@ def build(args: argparse.Namespace, log_fn=None) -> tuple:
     _refuse_unported(args)
     dev = resolve_device(args.device)
     H, W = args.height, args.width
-    mono = load_mono(args.mono_ckpt, args.max_depth, dev)
+    fnet = args.model == "fnet"
+    mono = None if fnet else load_mono(args.mono_ckpt, args.max_depth, dev)
     rng = np.random.default_rng(2022)
     order = view_order(args.views)
     V = len(order)
@@ -177,9 +182,10 @@ def build(args: argparse.Namespace, log_fn=None) -> tuple:
                  "gt_depth": torch.stack([torch.clamp(
                      s["depth_panos"][order[1]], 0, args.max_depth)
                      for s in samples])}
-        # inference tensors become ordinary ones for the autograd graph
-        batch["mono_depth"], batch["mono_feat"] = (
-            t.clone() for t in mono_prior(batch["panos"][:, 1]))
+        if mono is not None:
+            # inference tensors become ordinary ones for the autograd graph
+            batch["mono_depth"], batch["mono_feat"] = (
+                t.clone() for t in mono_prior(batch["panos"][:, 1]))
         return batch
 
     def batches():
@@ -189,13 +195,24 @@ def build(args: argparse.Namespace, log_fn=None) -> tuple:
     # the JAX tool draws one batch to initialise its net before training;
     # drawing it here too keeps the two streams of scenes the same
     make_batch()
-    model = MVSDepthModel(min_depth=args.min_depth, max_depth=args.max_depth,
-                          num_hypotheses=args.hypotheses,
-                          mvs_uncertainty=args.mvs_uncertainty)
+    if fnet:
+        model = FNetDepthModel(min_depth=args.min_depth,
+                               max_depth=args.max_depth,
+                               num_depths=args.hypotheses)
+    else:
+        model = MVSDepthModel(min_depth=args.min_depth,
+                              max_depth=args.max_depth,
+                              num_hypotheses=args.hypotheses,
+                              mvs_uncertainty=args.mvs_uncertainty,
+                              use_new_reg3dnet=args.new_reg3dnet)
     init_parameters_(model, torch.Generator().manual_seed(0))
     model.to(dev)
 
     def forward_fn(batch: dict) -> dict:
+        if fnet:
+            out = model(batch["panos"][:, :2], batch["rots"][:, :2],
+                        batch["trans"][:, :2])
+            return {"pred_depth": out["depth"]}
         out = model(batch["panos"], batch["rots"], batch["trans"],
                     batch["mono_depth"], batch["mono_feat"])
         out["pred_depth"] = out.pop("depth")
@@ -203,7 +220,7 @@ def build(args: argparse.Namespace, log_fn=None) -> tuple:
             out["pred"] = out["pred_final"]
         return out
 
-    print(f"mvs params: "
+    print(f"{args.model} params: "
           f"{sum(p.numel() for p in model.parameters()) / 1e6:.2f}M")
     cfg = DepthTrainConfig(
         name=args.name, learning_rate=args.lr,
@@ -216,7 +233,7 @@ def build(args: argparse.Namespace, log_fn=None) -> tuple:
             log_fn(step, m)
 
     trainer = DepthTrainer(model, forward_fn, cfg, log_fn=log,
-                           frozen={"d_net": mono})
+                           frozen={} if fnet else {"d_net": mono})
     return trainer, batches(), args.steps
 
 

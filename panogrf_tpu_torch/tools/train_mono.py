@@ -2,14 +2,18 @@
 
     python -m panogrf_tpu_torch.tools.train_mono --steps 200 \\
         --height 128 --width 256 [--loss l1_sphere|berhu|gaussian_nll] \\
-        [--uncertainty] [--mono-net UniFuse|Equi|Cube] [--device cpu]
+        [--uncertainty] [--mono-net UniFuse|Equi|ERP+TP|Cube] \\
+        [--nrows 4 --patch-size 64] [--num-layers 2|18|34] [--device cpu]
 
 Port of the repo's ``tools/train_mono.py``: each step draws ``--batch``
 procedural scenes from ``np.random.default_rng(2022)`` (per sample a
 ``SphereScene.random`` seed, then the seed of the 3-view sample at
 spacing 0.5), renders them on the device, trains on the middle view's
 ImageNet-normalised panorama (and its cubemap at H/2 for UniFuse and
-Cube) against its depth clipped to ``--max-depth``, with Adam at a
+Cube; ERP+TP cuts its tangent patches itself, ``--nrows`` rows of
+``--patch-size`` pixels) against its depth clipped to ``--max-depth``,
+on a ResNet (``--num-layers`` 18, 34) or MobileNetV2 (2) encoder, with
+Adam at a
 constant lr behind an element-wise gradient clip of 1
 (``train/depth_trainer.py``).  Checkpoints land in
 ``data/depth_model/<name>/checkpoint_<step>.pth``; ``--vis-interval``
@@ -18,9 +22,7 @@ resumes from the newest checkpoint of ``<name>``, then prints the ERP
 depth metrics of 2 more batches.  It runs on the CUDA device and raises
 without one unless ``--device cpu`` is given.
 
-Not ported yet, and refused with an error: ``--shards``, ``--mesh``, the
-``ERP+TP`` mono net (``--nrows``/``--patch-size`` serve it) and the
-MobileNetV2 encoder (``--num-layers 2``).
+Not ported yet, and refused with an error: ``--shards`` and ``--mesh``.
 """
 
 from __future__ import annotations
@@ -55,14 +57,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--max-depth", type=float, default=10.0)
     ap.add_argument("--mono-net", default="UniFuse",
                     choices=["UniFuse", "Equi", "ERP+TP", "Cube"],
-                    help="Equi = ERP branch only, Cube = cube branch only; "
-                         "ERP+TP is not ported yet")
+                    help="Equi = ERP branch only, ERP+TP = ERP and "
+                         "tangent-patch branches, Cube = cube branch only")
     ap.add_argument("--nrows", type=int, default=4,
-                    help="ERP+TP tangent-patch rows (not ported yet)")
-    ap.add_argument("--patch-size", type=int, default=64)
+                    help="ERP+TP tangent-patch rows (3/4/5/6)")
+    ap.add_argument("--patch-size", type=int, default=64,
+                    help="ERP+TP tangent-patch size in pixels")
     ap.add_argument("--num-layers", type=int, default=18,
-                    help="ResNet encoder depth: 18 or 34 (2 = MobileNetV2, "
-                         "not ported yet)")
+                    help="encoder: 2 = MobileNetV2, 18/34 = ResNet")
     ap.add_argument("--mesh", type=int, default=0, help="not ported yet")
     ap.add_argument("--vis-interval", type=int, default=100,
                     help="write rgb|gt|pred|error turbo sheets every N "

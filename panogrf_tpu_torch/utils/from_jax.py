@@ -18,11 +18,21 @@ layout, which the port's modules use.
 * ``cube_depth_state_dict``: ``CubeDepth``, which has no converter in
   the JAX package: its encoder is ``cube_encoder`` and its decoder has
   ``EquiDepth``'s layout;
+* ``unifuse_state_dict`` also serves ``ERPTPDepth``, which has no
+  converter: UniFuse's layout with its patch encoder under ``tp_encoder``;
 * ``mvs_state_dict``: ``MVSDepthModel`` params + batch_stats, inverse of
   ``convert_mvs`` (with ``mvs_uncertainty`` the last head block has two
-  output channels under the same keys).
+  output channels under the same keys; ``with_sin`` widens the first
+  conv and the head's input); ``CostRegNet`` (``use_new_reg3dnet``) goes
+  under ``unet3d``, inverse of ``convert_cost_reg``, and the ERP+TP / TP /
+  Cube feature nets under ``unet`` in ``nn/erp_tp.py``'s layout;
+* ``fnet_state_dict``: ``FNetDepthModel``; ``uncert_head_state_dict``:
+  ``DepthUncertHead`` (the port's layouts, no converter).
 
-Every uncertainty head (``uncert_head`` of the mono nets) is carried.
+Every encoder may be a ResNet or, with ``num_layers`` 2, a MobileNetV2
+(torchvision ``features.{i}`` keys); every uncertainty head
+(``uncert_head`` of the mono nets) is carried; the renderer's image
+encoder and init net may be ``ERPTPEncoder``s.
 
 Conv kernels (k..., I, O) become (O, I, k...), Dense kernels (in, out)
 become Linear weights (out, in), GroupNorm ``scale``/``bias`` become the
@@ -37,10 +47,13 @@ import numpy as np
 import torch
 from torch import nn
 
+from panogrf_tpu_torch.models.fnet import FNetDepthModel
 from panogrf_tpu_torch.models.mvs import MVSDepthModel
+from panogrf_tpu_torch.models.uncert import DepthUncertHead
 from panogrf_tpu_torch.models.unifuse import (EQUI_DEPTH_DECODER_ORDER,
                                               UNIFUSE_DECODER_ORDER,
-                                              CubeDepth, EquiDepth, UniFuse)
+                                              CubeDepth, EquiDepth,
+                                              ERPTPDepth, UniFuse)
 from panogrf_tpu_torch.renderer.ft_renderer import NeuralRayFtRenderer
 
 _POOL_STACKS = ("ray_dir_fc", "neuray_fc", "base_fc", "vis_fc", "vis_fc2",
@@ -75,6 +88,36 @@ class _StateDict(dict):
         self[f"{key}.running_mean"] = _t(s["mean"])
         self[f"{key}.running_var"] = _t(s["var"])
         self[f"{key}.num_batches_tracked"] = torch.tensor(0)
+
+    def encoder(self, prefix: str, p: dict, s: dict) -> None:
+        """A ResNet or MobileNetV2 encoder -> torchvision keys."""
+        if "InvertedResidual_0" in p:
+            self.mobilenet(prefix, p, s)
+        else:
+            self.resnet(prefix, p, s)
+
+    def conv_bn(self, key: str, p: dict, s: dict) -> None:
+        """A ``_ConvBNReLU6`` -> ``{key}.0`` conv and ``{key}.1`` BN."""
+        self.conv(f"{key}.0", p["Conv_0"])
+        self.batch_norm(f"{key}.1", p["_BN_0"]["BatchNorm_0"],
+                        s["_BN_0"]["BatchNorm_0"])
+
+    def mobilenet(self, prefix: str, p: dict, s: dict) -> None:
+        """``MobileNetV2Encoder`` -> torchvision ``features.{i}`` keys."""
+        self.conv_bn(f"{prefix}.features.0", p["_ConvBNReLU6_0"],
+                     s["_ConvBNReLU6_0"])
+        i = 0
+        while f"InvertedResidual_{i}" in p:
+            bp, bs = p[f"InvertedResidual_{i}"], s[f"InvertedResidual_{i}"]
+            t = f"{prefix}.features.{i + 1}.conv"
+            n = sum(k.startswith("_ConvBNReLU6_") for k in bp)
+            for j in range(n):
+                self.conv_bn(f"{t}.{j}", bp[f"_ConvBNReLU6_{j}"],
+                             bs[f"_ConvBNReLU6_{j}"])
+            self.conv(f"{t}.{n}", bp["Conv_0"])
+            self.batch_norm(f"{t}.{n + 1}", bp["_BN_0"]["BatchNorm_0"],
+                            bs["_BN_0"]["BatchNorm_0"])
+            i += 1
 
     def resnet(self, prefix: str, p: dict, s: dict) -> None:
         """``ResNetEncoder`` -> torchvision keys."""
@@ -140,28 +183,68 @@ class _StateDict(dict):
         self.conv(f"{key}.conv.1", p["WrapConv_0"]["Conv_0"])
         self.inorm(f"{key}.bn", p["InstanceNorm_0"])
 
-    def resunet(self, prefix: str, p: dict, layers) -> None:
-        self.conv(f"{prefix}.conv1.1", p["Conv_0"])
-        self.inorm(f"{prefix}.bn1", p["InstanceNorm_0"])
-        blk = 0
-        for li, nblocks in enumerate(layers, start=1):
-            for bi in range(nblocks):
-                t, bp = f"{prefix}.layer{li}.{bi}", p[f"BasicBlock_{blk}"]
-                self.conv(f"{t}.conv1.1", bp["WrapConv_0"]["Conv_0"])
-                self.inorm(f"{t}.bn1", bp["InstanceNorm_0"])
-                self.conv(f"{t}.conv2.1", bp["WrapConv_1"]["Conv_0"])
-                self.inorm(f"{t}.bn2", bp["InstanceNorm_1"])
-                if "Conv_0" in bp:
-                    self.conv(f"{t}.downsample.0", bp["Conv_0"])
-                    self.inorm(f"{t}.downsample.1", bp["InstanceNorm_2"])
-                blk += 1
+    def basic_block(self, t: str, bp: dict) -> None:
+        self.conv(f"{t}.conv1.1", bp["WrapConv_0"]["Conv_0"])
+        self.inorm(f"{t}.bn1", bp["InstanceNorm_0"])
+        self.conv(f"{t}.conv2.1", bp["WrapConv_1"]["Conv_0"])
+        self.inorm(f"{t}.bn2", bp["InstanceNorm_1"])
+        if "Conv_0" in bp:
+            self.conv(f"{t}.downsample.0", bp["Conv_0"])
+            self.inorm(f"{t}.downsample.1", bp["InstanceNorm_2"])
+
+    def decoder_2x(self, prefix: str, p: dict, out: str) -> None:
+        """ResUNetLight's decoder (upconv3, iconv3, upconv2, iconv2) and
+        its 1x1 head ``out``."""
         self.conv_in_elu(f"{prefix}.upconv3.conv",
                          p["UpconvINELU_0"]["ConvINELU_0"])
         self.conv_in_elu(f"{prefix}.iconv3", p["ConvINELU_0"])
         self.conv_in_elu(f"{prefix}.upconv2.conv",
                          p["UpconvINELU_1"]["ConvINELU_0"])
         self.conv_in_elu(f"{prefix}.iconv2", p["ConvINELU_1"])
-        self.conv(f"{prefix}.out_conv", p["Conv_1"])
+        self.conv(f"{prefix}.out_conv", p[out])
+
+    def resunet(self, prefix: str, p: dict, layers) -> None:
+        self.conv(f"{prefix}.conv1.1", p["Conv_0"])
+        self.inorm(f"{prefix}.bn1", p["InstanceNorm_0"])
+        blk = 0
+        for li, nblocks in enumerate(layers, start=1):
+            for bi in range(nblocks):
+                self.basic_block(f"{prefix}.layer{li}.{bi}",
+                                 p[f"BasicBlock_{blk}"])
+                blk += 1
+        self.decoder_2x(prefix, p, "Conv_1")
+
+    def erp_tp(self, prefix: str, p: dict, s: dict, layers) -> None:
+        """``ERPTPEncoder``: the JAX package creates the stems (ERP, then
+        tangent) and, per stage, the ERP branch's blocks, the tangent
+        branch's and the fusion layer in that order."""
+        self.conv(f"{prefix}.conv1.1", p["Conv_0"])
+        self.inorm(f"{prefix}.bn1", p["InstanceNorm_0"])
+        self.conv(f"{prefix}.tp_conv1.1", p["Conv_1"])
+        self.inorm(f"{prefix}.tp_bn1", p["InstanceNorm_1"])
+        blk = 0
+        for li, nblocks in enumerate(layers, start=1):
+            for branch in ("layer", "tp_layer"):
+                for bi in range(nblocks):
+                    self.basic_block(f"{prefix}.{branch}{li}.{bi}",
+                                     p[f"BasicBlock_{blk}"])
+                    blk += 1
+            kind = next(k for k in (f"CEELayer_{li - 1}", f"Concat_{li - 1}",
+                                    f"BiProj_{li - 1}") if k in p)
+            self.fusion(f"{prefix}.fusion{li}", p[kind], s.get(kind))
+        self.decoder_2x(prefix, p, "Conv_2")
+
+    def image_encoder(self, prefix: str, p: dict, s: dict, layers) -> None:
+        """A ``ResUNetLight`` or an ``ERPTPEncoder``."""
+        if "Conv_2" in p:
+            self.erp_tp(prefix, p, s, layers)
+        else:
+            self.resunet(prefix, p, layers)
+
+    def single_branch(self, prefix: str, p: dict) -> None:
+        """``TPOnlyEncoder`` / ``CubeOnlyEncoder``."""
+        for i in range(3):
+            self.basic_block(f"{prefix}.layer.{i}", p[f"BasicBlock_{i}"])
 
     def conv_res_conv(self, prefix: str, p: dict, num_res: int) -> None:
         self.conv(f"{prefix}.0.1", p["WrapConv_0"]["Conv_0"])
@@ -203,9 +286,10 @@ class _StateDict(dict):
             att["LayerNorm_0"]["bias"])
 
 
-def _shared_renderer_modules(sd: _StateDict, p: dict) -> None:
+def _shared_renderer_modules(sd: _StateDict, p: dict, s: dict) -> None:
     """The modules the gen and the ft renderer share."""
-    sd.resunet("image_encoder", p["image_encoder"], (1, 2, 6))
+    sd.image_encoder("image_encoder", p["image_encoder"],
+                     s.get("image_encoder", {}), (1, 2, 6))
     sd.conv_res_conv("vis_encoder.out_conv", p["vis_encoder"], 2)
     # the fine modules exist only with hierarchical sampling
     for name in ("dist_decoder", "fine_dist_decoder"):
@@ -217,12 +301,16 @@ def _shared_renderer_modules(sd: _StateDict, p: dict) -> None:
 
 
 def renderer_state_dict(params: dict) -> dict:
-    """The JAX ``NeuralRayGenRenderer``'s params (with or without the outer
-    ``{"params": ...}``) -> reference-layout state dict of CPU tensors."""
+    """The JAX ``NeuralRayGenRenderer``'s variables (or its params, with or
+    without the outer ``{"params": ...}``) -> reference-layout state dict
+    of CPU tensors; ERP+TP encoders need the ``batch_stats`` of their
+    fusion layers."""
     p = params.get("params", params)
+    s = params.get("batch_stats", {})
     sd = _StateDict()
-    _shared_renderer_modules(sd, p)
-    sd.resunet("init_net.res_net", p["init_net"]["res_net"], (2, 3, 6))
+    _shared_renderer_modules(sd, p, s)
+    sd.image_encoder("init_net.res_net", p["init_net"]["res_net"],
+                     s.get("init_net", {}).get("res_net", {}), (2, 3, 6))
     sd.conv_res_conv("init_net.depth_conv", p["init_net"]["depth_conv"], 1)
     sd.conv_res_conv("init_net.out_conv", p["init_net"]["out_conv"], 1)
     return dict(sd)
@@ -233,7 +321,7 @@ def ft_renderer_state_dict(params: dict) -> dict:
     dict of CPU tensors."""
     p = params.get("params", params)
     sd = _StateDict()
-    _shared_renderer_modules(sd, p)
+    _shared_renderer_modules(sd, p, {})
     for i, rf in enumerate(np.asarray(p["ray_feats"])):
         sd[f"ray_feats.{i}"] = _t(np.transpose(rf, (2, 0, 1))[None])
     return dict(sd)
@@ -241,11 +329,13 @@ def ft_renderer_state_dict(params: dict) -> dict:
 
 def unifuse_state_dict(variables: dict) -> dict:
     """The JAX ``UniFuse``'s variables (``params`` and ``batch_stats``) ->
-    reference-layout state dict of CPU tensors."""
+    reference-layout state dict of CPU tensors; of ``ERPTPDepth``'s, whose
+    second encoder is ``tp_encoder``, the same layout."""
     p, s = variables["params"], variables.get("batch_stats", {})
     sd = _StateDict()
-    for enc in ("equi_encoder", "cube_encoder"):
-        sd.resnet(enc, p[enc], s[enc])
+    for enc in ("equi_encoder", "cube_encoder", "tp_encoder"):
+        if enc in p:
+            sd.encoder(enc, p[enc], s[enc])
     index = {n: i for i, n in enumerate(UNIFUSE_DECODER_ORDER)}
     for i, name in enumerate(_CONVELU_ORDER):
         sd.conv(f"equi_decoder.{index[name]}.conv.conv",
@@ -263,7 +353,7 @@ def unifuse_state_dict(variables: dict) -> dict:
 def _single_branch_state_dict(variables: dict, encoder: str) -> dict:
     p, s = variables["params"], variables.get("batch_stats", {})
     sd = _StateDict()
-    sd.resnet(encoder, p[encoder], s[encoder])
+    sd.encoder(encoder, p[encoder], s[encoder])
     head = len(EQUI_DEPTH_DECODER_ORDER) - 1      # depthconv_0, last
     for i in range(head):
         sd.conv(f"equi_decoder.{i}.conv.conv", p[f"ConvELU_{i}"]["Conv_0"])
@@ -283,27 +373,42 @@ def cube_depth_state_dict(variables: dict) -> dict:
 
 
 def mvs_state_dict(variables: dict) -> dict:
-    """The JAX ``MVSDepthModel``'s variables (``Equi`` feature net and
-    ``UNet3D``) -> reference-layout state dict of CPU tensors."""
+    """The JAX ``MVSDepthModel``'s variables -> reference-layout state dict
+    of CPU tensors: the feature net (``Equi``, or an ERP+TP / TP / Cube
+    encoder), ``UNet3D`` or ``CostRegNet`` and the heads."""
     p, s = variables["params"], variables.get("batch_stats", {})
     sd = _StateDict()
-    fp = p["feature_net"]
-    sd.resnet("unet.equi_encoder", fp["equi_encoder"],
-              s["feature_net"]["equi_encoder"])
-    i = 0
-    while f"ConvELU_{i}" in fp:
-        sd.conv(f"unet.equi_decoder.{i}.conv.conv",
-                fp[f"ConvELU_{i}"]["Conv_0"])
-        i += 1
-    # UNet3D's blocks in call order: encoders 0..n, then the decoders
-    # from the deepest (torch index n-1) to torch index 0
-    u3 = p["unet3d"]
-    n = (len(u3) - 1) // 2
-    for i in range(n + 1):
-        sd.conv3d_block(f"unet3d.encoders.{i}", u3[f"Conv3DBlock_{i}"])
-    for j in range(n):
-        sd.conv3d_block(f"unet3d.decoders.{n - 1 - j}",
-                        u3[f"Conv3DBlock_{n + 1 + j}"])
+    fp, fs = p["feature_net"], s.get("feature_net", {})
+    if "equi_encoder" in fp:
+        sd.encoder("unet.equi_encoder", fp["equi_encoder"],
+                   fs["equi_encoder"])
+        i = 0
+        while f"ConvELU_{i}" in fp:
+            sd.conv(f"unet.equi_decoder.{i}.conv.conv",
+                    fp[f"ConvELU_{i}"]["Conv_0"])
+            i += 1
+    elif "Conv_2" in fp:
+        sd.erp_tp("unet", fp, fs, (1, 2, 6))
+    else:
+        sd.single_branch("unet", fp)
+    if "reg3dnet" in p:
+        rp, rs = p["reg3dnet"], s["reg3dnet"]
+        for name in ("conv0", "conv1", "conv2", "conv3", "conv4", "conv5",
+                     "conv6", "conv7", "conv9", "conv11"):
+            sd.conv(f"unet3d.{name}.conv", rp[name]["WrapConv3D_0"]["Conv_0"])
+            sd.batch_norm(f"unet3d.{name}.bn", rp[name]["BatchNorm_0"],
+                          rs[name]["BatchNorm_0"])
+        sd.conv("unet3d.prob.conv", rp["prob"]["Conv_0"])
+    else:
+        # UNet3D's blocks in call order: encoders 0..n, then the decoders
+        # from the deepest (torch index n-1) to torch index 0
+        u3 = p["unet3d"]
+        n = (len(u3) - 1) // 2
+        for i in range(n + 1):
+            sd.conv3d_block(f"unet3d.encoders.{i}", u3[f"Conv3DBlock_{i}"])
+        for j in range(n):
+            sd.conv3d_block(f"unet3d.decoders.{n - 1 - j}",
+                            u3[f"Conv3DBlock_{n + 1 + j}"])
     sd.conv("decoders1.conv", p["decoders1"])
     for i in range(3):
         dp = p[f"decoders2_{i}"]
@@ -312,15 +417,47 @@ def mvs_state_dict(variables: dict) -> dict:
     return dict(sd)
 
 
+def fnet_state_dict(variables: dict) -> dict:
+    """The JAX ``FNetDepthModel``'s variables -> the port's state dict."""
+    u = variables["params"]["unet"]
+    sd = _StateDict()
+    i = 0
+    while f"enc{i}" in u:
+        sd.conv(f"unet.enc{i}", u[f"enc{i}"]["Conv_0"])
+        sd.conv(f"unet.dec{i}.conv1", u[f"dec{i}"]["WrapConv_0"]["Conv_0"])
+        sd.conv(f"unet.dec{i}.conv2", u[f"dec{i}"]["WrapConv_1"]["Conv_0"])
+        i += 1
+    sd.conv("unet.final", u["final"]["Conv_0"])
+    return dict(sd)
+
+
+def uncert_head_state_dict(variables: dict) -> dict:
+    """The JAX ``DepthUncertHead``'s variables -> the port's state dict."""
+    p = variables["params"]
+    sd = _StateDict()
+    sd.conv("conv.1", p["WrapConv_0"]["Conv_0"])
+    rp = p["ResidualBlock_0"]
+    sd.inorm("res.conv.0", rp["InstanceNorm_0"])
+    sd.conv("res.conv.3", rp["WrapConv_0"]["Conv_0"])
+    sd.inorm("res.conv.4", rp["InstanceNorm_1"])
+    sd.conv("res.conv.7", rp["WrapConv_1"]["Conv_0"])
+    sd.conv("out", p["Conv_0"])
+    return dict(sd)
+
+
 def load_jax_params(model: nn.Module, params: dict) -> nn.Module:
     """Copy a JAX module's variables into the port ``model`` (a gen or ft
-    renderer, a mono net or ``MVSDepthModel``; every parameter and buffer
-    must be matched); returns the model."""
+    renderer, a mono net, ``MVSDepthModel``, ``FNetDepthModel`` or
+    ``DepthUncertHead``; every parameter and buffer must be matched);
+    returns the model."""
     converters = ((NeuralRayFtRenderer, ft_renderer_state_dict),
                   (UniFuse, unifuse_state_dict),
+                  (ERPTPDepth, unifuse_state_dict),
                   (EquiDepth, equi_depth_state_dict),
                   (CubeDepth, cube_depth_state_dict),
-                  (MVSDepthModel, mvs_state_dict))
+                  (MVSDepthModel, mvs_state_dict),
+                  (FNetDepthModel, fnet_state_dict),
+                  (DepthUncertHead, uncert_head_state_dict))
     sd = next((fn(params) for cls, fn in converters
                if isinstance(model, cls)), None)
     if sd is None:

@@ -323,8 +323,6 @@ def test_equi_matches_jax():
         got = tm(torch.tensor(x))
     assert got.shape == (2, DH // 4, DW // 4, 32)
     assert_close(got, want)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TEqui(with_sin=True)
 
 
 # ---------------------------------------------------------------------------
@@ -461,13 +459,6 @@ def test_mvs_state_dict_round_trip():
     variables = mvs_variables(tm)
     back = from_jax.load_jax_params(tmvs.MVSDepthModel(**MVS_KW), variables)
     same_tree(tcv.convert_mvs(numpy_sd(back)), variables)
-
-
-def test_mvs_refuses_what_is_not_ported():
-    for kw in ({"use_new_reg3dnet": True}, {"feature_net_type": "TP"},
-               {"with_sin": True}):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tmvs.MVSDepthModel(**kw)
 
 
 # ---------------------------------------------------------------------------

@@ -798,10 +798,7 @@ def test_cli_train_depth_reads_its_recipe(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("tool,argv", [
     ("train_mono", ["--shards", "x"]), ("train_mono", ["--mesh", "2"]),
-    ("train_mono", ["--mono-net", "ERP+TP"]),
-    ("train_mono", ["--num-layers", "2"]),
-    ("train_depth", ["--model", "fnet"]),
-    ("train_depth", ["--new-reg3dnet"]), ("train_depth", ["--mesh", "2"]),
+    ("train_depth", ["--mesh", "2"]),
     ("train_depth", ["--shards", "x"])])
 def test_cli_refuses_what_is_not_ported(tool, argv, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
