@@ -48,7 +48,15 @@ the wrapper's host cost, then drives the port's two paths at full width
   each), one MVS forward with each feature net and ``with_sin``, a
   512x1024 frame with the renderer's ERP+TP encoders, a small step of each
   variant and a 64x128 ERP+TP frame on CUDA against the CPU, and the mono
-  recipe's cube-encoder gradients on CUDA and the CPU against float64.
+  recipe's cube-encoder gradients on CUDA and the CPU against float64;
+* the data pipeline: ``prepare_data`` writing 512x1024 shards on the card
+  (three-view, and with cube faces), an LMDB env imported through
+  ``import_lmdb``, the shard reader's host ms per sample on 4 shards of
+  64 samples, the training CLI and ``train_mono`` on those shards and
+  ``train_depth`` on 256x512 shards (6 steps each),
+  ``render --shards`` eval frames and ``render_cubes --shards`` faces
+  against the stored faces, and the online generator, the readers'
+  resize and the augmentations on CUDA against the CPU at 64x128.
 
 Each path checks that it went through its kernels.  Each phase prints one
 JSON line; any failure raises, so the process exits non-zero.  The last
@@ -76,8 +84,11 @@ import torch
 import yaml
 
 from panogrf_tpu_torch.core import cubemap
-from panogrf_tpu_torch.data import imgs_info
+from panogrf_tpu_torch.data import augment, imgs_info, lmdb_import
+from panogrf_tpu_torch.data import lmdb_reader, readers
+from panogrf_tpu_torch.data import shards as shards_mod
 from panogrf_tpu_torch.data.database import PanoDatabase
+from panogrf_tpu_torch.data.online import OnlineImageGenerator
 from panogrf_tpu_torch.data.synthetic import (SphereScene,
                                               make_multi_view_sample,
                                               make_three_view_sample)
@@ -99,8 +110,9 @@ from panogrf_tpu_torch.renderer.ft_renderer import (NeuralRayFtRenderer,
 from panogrf_tpu_torch.renderer.renderer import NeuralRayGenRenderer
 from panogrf_tpu_torch.tools import eval_depth, train_depth, train_mono
 from panogrf_tpu_torch.tools import render as render_tool
-from panogrf_tpu_torch.tools import (ab_quality, render_cubes, render_ft,
-                                     render_mv, train_ft, train_renderer)
+from panogrf_tpu_torch.tools import (ab_quality, import_lmdb, prepare_data,
+                                     render_cubes, render_ft, render_mv,
+                                     train_ft, train_renderer)
 from panogrf_tpu_torch.train import depth_trainer
 from panogrf_tpu_torch.train import trainer as trainer_mod
 
@@ -784,14 +796,15 @@ def train_full_width() -> tuple:
     64 samples, 512 rays a step, render + depth losses, exp-decay lr,
     float32) over a pool of 2 scenes rendered on the card (``train_cli``),
     then a profile of one more step.  Returns (mlp2 launches per step,
-    mlp3 launches over all steps, the checkpoint)."""
+    mlp3 launches over all steps, the checkpoint, ms/step)."""
     trainer, stream, row, _ = train_cli(
         "train", ["--cfg", TRAIN_CFG, "--pool", "2"],
         {"cfg": TRAIN_CFG, "hw": [H, W], "depth_hw": [DH, DW],
          "samples": [64, 64], "rays": 512})
     profile_train_step(lambda: trainer.fit(stream, 1))
     return (row["mlp2_launches_per_step"][-1],
-            sum(row["mlp3_launches_per_step"]), trainer.ckpt_path("latest"))
+            sum(row["mlp3_launches_per_step"]), trainer.ckpt_path("latest"),
+            row["ms_per_step"])
 
 
 def profile_train_step(step_once, phase: str = "train_profile") -> None:
@@ -2277,9 +2290,306 @@ def cube_encoder_float64_check() -> None:
                    "cpu_f64": cp64["loss"]}})
 
 
+# ---------------------------------------------------------------------------
+# the data pipeline: shards, the LMDB import and --shards in the CLIs
+# ---------------------------------------------------------------------------
+
+DATA_RUNS = Path("data/chip_smoke_data")
+# the reference writer's name scheme: mode, width x height, views, spacing
+LMDB_ENV = f"lmdb_render_train_{W}x{H}_seq_len_3_m3d_dist_0.5"
+
+
+def prepare_shards(phase: str, out: Path, argv: list, num: int) -> dict:
+    """``tools.prepare_data`` writing ``num`` samples to ``out`` on the
+    card, 64 a shard: seconds per sample, the shards' sizes, and the keys
+    and dtypes of the first shard (the JAX package's schema)."""
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    written = prepare_data.main(["--out", str(out), "--num", str(num),
+                                 "--device", "cuda", *argv])
+    seconds = time.perf_counter() - t0
+    shards = sorted(out.glob("shard_*.npz"))
+    with np.load(shards[0]) as z:
+        schema = {k: [list(z[k].shape), str(z[k].dtype)] for k in z.files}
+    row = {"phase": phase, "argv": argv, "samples": written,
+           "seconds": seconds, "s_per_sample": seconds / num,
+           "shards": len(shards),
+           "bytes_per_shard": [p.stat().st_size for p in shards],
+           "schema": schema}
+    emit(row)
+    want = {k: "float16" if k in shards_mod.ShardWriter.F16_KEYS
+            else "float32" for k in schema}
+    if written != num or len(shards) != -(-num // 64) or \
+            {k: v[1] for k, v in schema.items()} != want or \
+            any(v[0][0] != min(num, 64) for v in schema.values()):
+        raise AssertionError(f"{phase}: {row}")
+    return row
+
+
+def lmdb_import_check(cube_dir: Path) -> dict:
+    """A 2-sample, seq_len 3 LMDB env written by ``write_minimal_lmdb``
+    from the online generator's 512x1024 cube samples (rendered on the
+    card), named by the reference scheme, imported through the
+    ``import_lmdb`` CLI with the geometry parsed from the name; the shard
+    must equal the float16 / float32 casts of what was written."""
+    gen = OnlineImageGenerator("train", H, W, seq_len=3, m3d_dist=0.5,
+                               with_cubes=True, seed=5, device="cuda")
+    samples = [gen[i] for i in range(2)]
+    env = cube_dir.parent / LMDB_ENV
+    shutil.rmtree(env, ignore_errors=True)
+    t0 = time.perf_counter()
+    lmdb_reader.write_minimal_lmdb(env, {
+        f"{i},{k}".encode("ascii"): np.ascontiguousarray(v, np.float32)
+        .tobytes() for i, s in enumerate(samples) for k, v in s.items()})
+    write_s = time.perf_counter() - t0
+    out = cube_dir.parent / "imported"
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    n = import_lmdb.main(["--env", str(env), "--out", str(out)])
+    import_s = time.perf_counter() - t0
+    with np.load(out / shards_mod.SHARD_FMT.format(0)) as z:
+        got = {k: z[k] for k in z.files}
+    bad = []
+    for k in samples[0]:
+        dt = np.float16 if k in shards_mod.ShardWriter.F16_KEYS \
+            else np.float32
+        want = np.stack([s[k] for s in samples]).astype(dt)
+        if k not in got or got[k].dtype != want.dtype or \
+                not np.array_equal(got[k], want):
+            bad.append(k)
+    row = {"phase": "lmdb_import", "env": LMDB_ENV,
+           "parsed": lmdb_import.parse_env_name(env), "samples": n,
+           "env_bytes": (env / "data.mdb").stat().st_size,
+           "write_seconds": write_s, "import_seconds": import_s,
+           "keys": sorted(got), "mismatched": bad}
+    emit(row)
+    if n != 2 or bad or row["parsed"] != {
+            "mode": "train", "width": W, "height": H, "seq_len": 3,
+            "m3d_dist": 0.5}:
+        raise AssertionError(f"lmdb_import: {row}")
+    return row
+
+
+def reader_timing(shard_dir: Path) -> dict:
+    """``ShardReader``'s host ms per sample on the 256-sample 512x1024
+    directory (4 shards of 64): 64 reads at the sample indices that
+    ``train_mono``'s generator draws, split into the reads that map a
+    shard (the reader keeps 3, so most draws after the first few shards
+    map one again) and the others, the median of each; beside them two
+    reads of a sample the way an ``NpzFile`` gives it (every key's member
+    of the 64-sample shard decoded whole), as the JAX reader does."""
+    reader = shards_mod.ShardReader(shard_dir)
+    idx = np.random.default_rng(2022).integers(len(reader), size=64)
+    mapping, mapped = [], []
+    for i in idx:
+        fresh = int(i) // reader.sps not in reader._cache
+        t0 = time.perf_counter()
+        s = reader[int(i)]
+        (mapping if fresh else mapped).append(
+            (time.perf_counter() - t0) * 1e3)
+    npz_ms = []
+    for i in idx[:2]:
+        si, off = divmod(int(i), reader.sps)
+        t0 = time.perf_counter()
+        with np.load(shard_dir / shards_mod.SHARD_FMT.format(si)) as z:
+            {k: np.asarray(z[k][off], np.float32) for k in z.files}
+        npz_ms.append((time.perf_counter() - t0) * 1e3)
+    row = {"phase": "shard_reader", "samples": len(reader),
+           "shards": reader.num_shards, "samples_per_shard": reader.sps,
+           "reads": len(idx), "reads_mapping_a_shard": len(mapping),
+           "ms_per_sample_mapping_a_shard": statistics.median(mapping),
+           "ms_per_sample": statistics.median(mapped),
+           "ms_runs_mapping": mapping, "ms_runs": mapped,
+           "npzfile_ms_per_sample": statistics.median(npz_ms),
+           "npzfile_ms_runs": npz_ms,
+           "sample_bytes": int(sum(v.nbytes for v in s.values())),
+           "shard_bytes": (shard_dir / shards_mod.SHARD_FMT.format(0))
+           .stat().st_size}
+    emit(row)
+    if not all(s[k].dtype == np.float32 for k in s) or \
+            s["rgb_panos"].shape != (3, H, W, 3) or len(mapping) < 4:
+        raise AssertionError(f"shard_reader: {row}")
+    return row
+
+
+def shard_training(shards: Path, mvs_shards: Path, pool_ms) -> dict:
+    """``train_renderer --shards`` on TRAIN_CFG (a derived yaml of its own
+    name, so that the training group's checkpoint stays) through
+    ``train_cli``, 2 mlp2 launches per step asserted, its ms/step beside
+    the pool's from the training group; then ``train_mono --shards`` on
+    the mono recipe and ``train_depth --shards`` on MVS_CFG (from the
+    256x512 shards, on the mono run's checkpoint) through
+    ``depth_train_cli``: every parameter and BatchNorm statistic moved, no
+    MLP kernel launched.  Returns the renderer's checkpoint and the
+    launches."""
+    cfg = yaml.safe_load(Path(TRAIN_CFG).read_text())
+    cfg.update(name="chip_smoke_shards")
+    path = DATA_RUNS / "train_shards.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    trainer, _, row, _ = train_cli(
+        "train_shards", ["--cfg", str(path), "--shards", str(shards)],
+        {"cfg": TRAIN_CFG, "shards": str(shards), "hw": [H, W],
+         "depth_hw": [DH, DW], "samples": [64, 64], "rays": 512,
+         "pool_ms_per_step": pool_ms})
+    ckpt = trainer.ckpt_path("latest")
+    del trainer
+    common = ["--steps", str(DEPTH_STEPS), "--log-interval", "1",
+              "--vis-interval", "0", "--device", "cuda"]
+    _, _, mono_ckpt, m2a, m3a = depth_train_cli(
+        "train_mono_shards", train_mono,
+        ["--shards", str(shards), "--height", str(H), "--width", str(W),
+         "--batch", "2", "--name", "chip_smoke_shards_mono", *common])
+    _, _, _, m2b, m3b = depth_train_cli(
+        "train_depth_shards", train_depth,
+        ["--cfg", MVS_CFG, "--shards", str(mvs_shards), "--mono-ckpt",
+         str(mono_ckpt), "--name", "chip_smoke_shards_mvs", *common])
+    return {"ckpt": ckpt, "per_step": row["mlp2_launches_per_step"][-1],
+            "mlp3": sum(row["mlp3_launches_per_step"]) + m3a + m3b,
+            "depth_mlp2": m2a + m2b}
+
+
+def shard_renders(shards: Path, cube_shards: Path, ckpt) -> dict:
+    """``render --shards``: 2 eval frames of shard scenes at 512x1024
+    under the serving preset at 4096-ray chunks, the references at their
+    stored depth, from the shard-trained checkpoint: 160 mlp2 launches a
+    frame, finite metrics in range; ``render_cubes --shards``: the first
+    cube-shard scene's six 256x256 faces against the stored faces, the
+    stored face poses as cameras, 192 launches.  All ``lanes``; no mlp3."""
+    common = ["--height", str(H), "--width", str(W), "--depth-height",
+              str(DH), "--depth-width", str(DW), "--ckpt", str(ckpt),
+              "--device", "cuda"]
+    per_frame = H * W // 4096 + (H // 2) * (W // 2) // 4096
+    runs = {"render_shards": (render_tool, [
+                "--shards", str(shards), "--num", "2", "--preset",
+                "serving", "--chunk", "4096", "--no-skip", "--out",
+                str(DATA_RUNS / "render")], 2 * per_frame),
+            "render_cubes_shards": (render_cubes, [
+                "--shards", str(cube_shards), "--num", "1", "--out",
+                str(DATA_RUNS / "render_cubes")],
+                6 * -(-(H // 2) ** 2 // render_cubes.CHUNK) * 2)}
+    counts = {}
+    for phase, (tool, argv, expected) in runs.items():
+        fused_mlp.reset_launches()
+        t0 = time.perf_counter()
+        summary = tool.main(common + argv)
+        seconds = time.perf_counter() - t0
+        count, count3 = fused_mlp.MLP2_LAUNCHES, fused_mlp.MLP3_LAUNCHES
+        variants = dict(fused_mlp.VARIANT_LAUNCHES)
+        scored = summary["frames"] if "frames" in summary \
+            else summary["faces"]
+        row = {"phase": phase, "hw": [H, W], "mlp2_launches": count,
+               "mlp3_launches": count3, "variant_launches": variants,
+               "cli_seconds": seconds, "mean": summary["mean"],
+               "scored": len(scored)}
+        if "sec_per_face" in summary:
+            row["sec_per_face"] = summary["sec_per_face"]
+        else:
+            row["sec_per_frame"] = [f["sec_per_frame"] for f in scored]
+        emit(row)
+        ok = len(scored) == (2 if phase == "render_shards" else 6) and all(
+            np.isfinite(m[k]) and 0 < m["psnr_nr"] < 100
+            and -1 <= m["ssim_nr"] <= 1 for m in scored for k in m)
+        if not ok:
+            raise AssertionError(f"{phase}: {summary}")
+        if count != expected or count3:
+            raise AssertionError(f"{phase}: mlp2 launched {count} times, "
+                                 f"expected {expected}; mlp3 {count3}")
+        assert_specialised(phase, count, variants)
+        counts[phase] = count
+    return counts
+
+
+def _silhouette_close(a: np.ndarray, b: np.ndarray, tol: float,
+                      pixels: int = 4) -> int:
+    """Pixels of (..., C) images further apart than ``tol``, asserted at
+    most ``pixels`` (silhouette pixels may flip between a sphere and the
+    room under float rounding of the ray-sphere test)."""
+    bad = int((np.abs(a - b).max(-1) > tol).sum())
+    if bad > pixels:
+        raise AssertionError(f"{bad} pixels beyond {tol}")
+    return bad
+
+
+def data_cuda_vs_cpu() -> None:
+    """At 64x128: the online generator's cube sample rendered on the card
+    against the CPU (rgb within 1e-5 and depth within 1e-4 but for at
+    most 4 silhouette pixels per key, poses within 1e-7 / 1e-6), and the
+    readers' antialiased resize (shrink and enlarge) and the
+    augmentations' arithmetic (yaw roll, photometric jitter at fixed
+    draws) on the same input on the card and the CPU, within 1e-6."""
+    h, w = 64, 128
+    got = {d: OnlineImageGenerator("val", h, w, with_cubes=True, seed=3,
+                                   device=d)[0] for d in ("cuda", "cpu")}
+    pix = {k: _silhouette_close(got["cuda"][k], got["cpu"][k], tol)
+           for k, tol in (("rgb_panos", 1e-5), ("depth_panos", 1e-4),
+                          ("rgb_cubes", 1e-5), ("depth_cubes", 1e-4))}
+    pose = {k: float(np.abs(got["cuda"][k] - got["cpu"][k]).max())
+            for k in ("rots", "trans", "rots_cubes", "trans_cubes")}
+    rng = np.random.default_rng(4)
+    img = rng.uniform(size=(3, h, w, 3)).astype(np.float32)
+    resize = {}
+    for hw in ((32, 64), (40, 128), (128, 256)):
+        out = {d: readers.resize_bilinear(torch.tensor(img, device=d), hw)
+               .cpu() for d in ("cuda", "cpu")}
+        resize[str(hw)] = (out["cuda"] - out["cpu"]).abs().max().item()
+    sample = {"rgb_panos": img, "depth_panos": rng.uniform(
+        0.5, 8.0, size=(3, h, w, 1)).astype(np.float32),
+        "rots": got["cpu"]["rots"], "trans": got["cpu"]["trans"]}
+    aug = {}
+    for d in ("cuda", "cpu"):
+        s = augment.yaw_roll(shards_mod.sample_to_torch(sample, d), 37)
+        aug[d] = augment.photometric_jitter(s, 1.13, 0.91,
+                                            [0.95, 1.04, 1.08])
+    aug_err = {k: (aug["cuda"][k].cpu() - aug["cpu"][k]).abs().max().item()
+               for k in ("rgb_panos", "depth_panos", "rots")}
+    emit({"phase": "data_cuda_vs_cpu", "hw": [h, w],
+          "pixels_beyond_tol": pix, "max_abs_err_pose": pose,
+          "max_abs_err_resize": resize, "max_abs_err_augment": aug_err})
+    if pose["rots"] > 1e-7 or pose["rots_cubes"] > 1e-7 or \
+            pose["trans"] > 1e-6 or pose["trans_cubes"] > 1e-6 or \
+            max(resize.values()) > 1e-6 or max(aug_err.values()) > 1e-6:
+        raise AssertionError(f"data_cuda_vs_cpu: pose {pose}, resize "
+                             f"{resize}, augment {aug_err}")
+
+
+def data_pipeline(pool_ms) -> dict:
+    """The data group: shards written on the card (8 three-view samples at
+    512x1024, 256 more in 4 shards of 64 (3.2 GB), 4 at 256x512 for the
+    MVS recipe, 4 validation cube samples at 512x1024), the LMDB import,
+    the reader's host cost and the renderer's and mono trainers on the
+    256 samples, the MVS trainer and the two render CLIs on the small
+    directories, and the CUDA-against-CPU checks.  Returns the mlp2 launches of the shard paths and the mlp3
+    launches of the training runs."""
+    DATA_RUNS.mkdir(parents=True, exist_ok=True)
+    shards, big, mvs_shards, cube_shards = (DATA_RUNS / n for n in (
+        "shards_512", "shards_512_4x64", "shards_256", "cubes_val"))
+    prepare_shards("prepare_shards", shards,
+                   ["--height", str(H), "--width", str(W)], 8)
+    prepare_shards("prepare_shards_64", big,
+                   ["--height", str(H), "--width", str(W), "--seed", "2"],
+                   256)
+    prepare_shards("prepare_shards_mvs", mvs_shards,
+                   ["--height", str(H // 2), "--width", str(W // 2),
+                    "--m3d-dist", "1.0", "--seed", "1"], 4)
+    prepare_shards("prepare_shards_cubes", cube_shards,
+                   ["--height", str(H), "--width", str(W), "--cubes",
+                    "--split", "val"], 4)
+    lmdb_import_check(cube_shards)
+    reader_timing(big)
+    trained = shard_training(big, mvs_shards, pool_ms)
+    shutil.rmtree(big)
+    renders = shard_renders(shards, cube_shards, trained["ckpt"])
+    data_cuda_vs_cpu()
+    return {"train_per_step": trained["per_step"],
+            "render": renders["render_shards"],
+            "render_cubes": renders["render_cubes_shards"],
+            "mlp3": trained["mlp3"]}
+
+
 PHASES = ("kernels", "serving", "training", "depth_stack",
           "depth_training", "render_cli", "video", "mv_ft", "modes",
-          "depth_variants")
+          "depth_variants", "data")
 
 
 def main(argv=None) -> int:
@@ -2314,9 +2624,9 @@ def main(argv=None) -> int:
         row["launches_turbo"] = launches["turbo"]
         row3["launches"] += mlp3_serving
         cuda_vs_cpu()
-    gen_ckpt = mvs_ckpt = None
+    gen_ckpt = mvs_ckpt = pool_ms = None
     if "training" in phases:
-        row["launches_train_per_step"], mlp3_train, gen_ckpt = \
+        row["launches_train_per_step"], mlp3_train, gen_ckpt, pool_ms = \
             train_full_width()
         row3["launches"] += mlp3_train
         train_cuda_vs_cpu()
@@ -2370,6 +2680,12 @@ def main(argv=None) -> int:
         row["launches_erp_tp_frame"] = erp_tp_frame()
         variant_cuda_vs_cpu()
         cube_encoder_float64_check()
+    if "data" in phases:
+        data = data_pipeline(pool_ms)
+        row["launches_shards_train_per_step"] = data["train_per_step"]
+        row["launches_shards_render"] = data["render"]
+        row["launches_shards_render_cubes"] = data["render_cubes"]
+        row3["launches"] += data["mlp3"]
     # no path of either package calls mlp3: the main paths launch it 0 times
     # (render_cli asserts its own 0)
     if row3["launches"] != 0:

@@ -1,10 +1,13 @@
-"""Scene database: the cube-face cameras of a panorama view.
+"""Scene database: one multi-view sample, its view split and the
+cube-face cameras of its views.
 
-Port of the cube-camera part of ``panogrf_tpu/data/database.py``: the
-90-degree pinhole intrinsics of a cube face, the camera-frame rotations of
-the six faces in the [F R B L U D] layout of ``core/cubemap.py``, and
-``PanoDatabase.cube_cameras``, the per-face world-to-camera poses of a
-view.  Numpy in, numpy out.
+Port of ``panogrf_tpu/data/database.py``: the 90-degree pinhole
+intrinsics of a cube face, the camera-frame rotations of the six faces in
+the [F R B L U D] layout of ``core/cubemap.py``, ``PanoDatabase`` with
+``cube_cameras`` (the per-face world-to-camera poses of a view), and the
+reference's view splits: references [0, 2] and query [1] for the two-view
+protocol (``get_database_split``), the first ``reference_idx`` views for
+the multi-view one (``get_database_split_mv``).  Numpy in, numpy out.
 """
 
 from __future__ import annotations
@@ -95,3 +98,24 @@ class PanoDatabase:
         trans = np.einsum("fji,j->fi", face_r, t)
         w2c = np.concatenate([rots, trans[..., None]], -1).astype(np.float32)
         return w2c, cube_intrinsics(self.images.shape[2] // 2)
+
+
+def get_database_split(database: PanoDatabase, split_type: str = "test"):
+    """(reference ids, query ids) of the two-view protocol: references
+    [0, 2], the database's test views as queries, for the m3d, residential,
+    CoffeeArea / coffee_area and replica databases; any other split type
+    or database name raises ``NotImplementedError``."""
+    if not split_type.startswith("test"):
+        raise NotImplementedError(split_type)
+    name = database.database_name
+    if name.startswith(("m3d", "residential", "CoffeeArea", "coffee_area",
+                        "replica")):
+        return [0, 2], list(database.test_img_ids)
+    raise NotImplementedError(name)
+
+
+def get_database_split_mv(database: PanoDatabase, reference_idx: int,
+                          test_views: Sequence[int]):
+    """(reference ids, query ids) of the multi-view protocol: the first
+    ``reference_idx`` views and ``test_views``."""
+    return list(range(reference_idx)), list(test_views)

@@ -4,10 +4,12 @@
         [--height H --width W] [--pose-type eval|inter] [--inter-num K] \\
         [--frame-batch B] [--preset serving] [--chunk C] \\
         [--depth-stack | --mono-ckpt F [--mvs-ckpt F] [--wo-stereo]] \\
-        [--out DIR] [--device cpu]
+        [--shards DIR] [--out DIR] [--device cpu]
 
-Port of the repo's ``tools/render.py``.  'eval' renders the held-out query
-view of each scene and writes ``<i>-nr_fine.png``, ``<i>-gt.png`` and the
+Port of the repo's ``tools/render.py``.  The scenes are procedural 3-view
+samples, or with ``--shards`` the first ``--num`` samples of a shard
+directory (``tools/prepare_data.py``, ``tools/import_lmdb.py``).  'eval'
+renders the held-out query view of each scene and writes ``<i>-nr_fine.png``, ``<i>-gt.png`` and the
 mean PSNR / SSIM / WS-PSNR with the seconds per frame in ``metric.txt``;
 'inter' renders a path of ``--inter-num`` poses between the two reference
 views, ``--frame-batch`` poses per pass (``render_video_device``), and
@@ -26,8 +28,8 @@ checkpoint in the reference ``model.pth`` layout, which the port's
 trainer writes.
 
 It runs on the CUDA device and raises without one unless ``--device cpu``
-is given.  ``--shards``, ``--mesh`` and ``--lpips-weights`` are not ported
-yet and are refused.
+is given.  ``--mesh`` and ``--lpips-weights`` are not ported yet and are
+refused.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ import numpy as np
 import torch
 
 from panogrf_tpu_torch.data import imgs_info
+from panogrf_tpu_torch.data.shards import ShardReader, sample_to_torch
 from panogrf_tpu_torch.data.synthetic import (SphereScene,
                                               make_three_view_sample)
 from panogrf_tpu_torch.models.depth_stack import (load_depth_stack,
@@ -102,8 +105,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "without --mono-ckpt)")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'")
-    for flag in ("--shards", "--lpips-weights"):
-        ap.add_argument(flag, default=None, help="not ported yet")
+    ap.add_argument("--shards", default=None,
+                    help="render the first --num samples of this shard "
+                         "directory instead of procedural scenes")
+    ap.add_argument("--lpips-weights", default=None, help="not ported yet")
     ap.add_argument("--mesh", type=int, default=0, help="not ported yet")
     args = ap.parse_args(argv)
     if args.exact:
@@ -121,8 +126,7 @@ def save_image(path: Path, img) -> None:
 
 
 def _refuse_unported(args) -> None:
-    unported = {"--shards (offline shard reader)": args.shards,
-                "--mesh (multi-GPU rendering)": args.mesh,
+    unported = {"--mesh (multi-GPU rendering)": args.mesh,
                 "--lpips-weights (LPIPS)": args.lpips_weights}
     for what, asked in unported.items():
         if asked:
@@ -184,13 +188,19 @@ def main(argv=None) -> dict:
 
     coords = imgs_info.sample_train_coords(np.random.default_rng(0), H, W, 8,
                                            device=dev)
-    for qi in range(args.num):
+    reader = ShardReader(args.shards) if args.shards else None
+    num = min(args.num, len(reader)) if reader is not None else args.num
+    for qi in range(num):
         if not args.no_skip and args.pose_type == "eval" and \
                 (out_dir / f"{qi}-nr_fine.png").exists():
             print(f"[{qi}] exists, skipping")
             continue
-        s = make_three_view_sample(SphereScene.random(9000 + qi, device=dev),
-                                   H, W, args.m3d_dist, seed=100 + qi)
+        if reader is not None:
+            s = sample_to_torch(reader[qi], dev)
+        else:
+            s = make_three_view_sample(
+                SphereScene.random(9000 + qi, device=dev), H, W,
+                args.m3d_dist, seed=100 + qi)
         data = imgs_info.build_render_sample(s, coords)
         ref_info = data["ref_imgs_info"]
         que_info = data["que_imgs_info"]

@@ -2,7 +2,8 @@
 
     python -m panogrf_tpu_torch.tools.render_cubes [--ckpt model.pth] \\
         [--num N] [--height H --width W] \\
-        [--depth-height DH --depth-width DW] [--out DIR] [--device cpu]
+        [--depth-height DH --depth-width DW] [--shards DIR] [--out DIR] \\
+        [--device cpu]
 
 Port of the repo's ``tools/render_cubes.py``.  For each of ``--num``
 procedural 3-view scenes the six 90-degree cube faces (H/2 x H/2 pixels)
@@ -14,9 +15,13 @@ renders in chunks of 4096 rays, which only blocks the work.  Writes
 ``<i>-face<f>-pred.npy`` and ``metric.txt`` (the mean PSNR / SSIM /
 WS-PSNR) under ``--out``.  ``--ckpt`` is a renderer ``model.pth`` in the
 reference layout, which the port's training CLI writes; without it the
-weights are random.  It runs on the CUDA device and raises without one
-unless ``--device cpu`` is given.  ``--shards`` (stored cube faces as the
-ground truth) is not ported yet and is refused.
+weights are random.  With ``--shards`` the scenes are the first
+``--num`` samples of a shard directory; where they carry cube faces
+(``prepare_data --cubes``, imported reference data) the stored query
+faces are the ground truth and their stored poses ``[rots_cubes |
+trans_cubes]`` the face cameras, with the intrinsics of the stored face
+width, which must be ``--height`` / 2.  It runs on the CUDA device and
+raises without one unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -31,7 +36,8 @@ import torch
 
 from panogrf_tpu_torch.core import cubemap
 from panogrf_tpu_torch.data import imgs_info
-from panogrf_tpu_torch.data.database import PanoDatabase
+from panogrf_tpu_torch.data.database import PanoDatabase, cube_intrinsics
+from panogrf_tpu_torch.data.shards import ShardReader, sample_to_torch
 from panogrf_tpu_torch.data.synthetic import (SphereScene,
                                               make_three_view_sample)
 from panogrf_tpu_torch.nn.blocks import resize_linear
@@ -53,7 +59,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--depth-width", type=int, default=256)
     ap.add_argument("--m3d-dist", type=float, default=0.5)
     ap.add_argument("--out", default="data/render_cubes_out")
-    ap.add_argument("--shards", default=None, help="not ported yet")
+    ap.add_argument("--shards", default=None,
+                    help="render the first --num samples of this shard "
+                         "directory; stored cube faces are the ground truth")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'")
     return ap.parse_args(argv)
@@ -80,9 +88,6 @@ def main(argv=None) -> dict:
     """Run the tool on ``argv``; returns the per-face metrics, their mean
     and the seconds per face."""
     args = parse_args(argv)
-    if args.shards:
-        raise NotImplementedError("--shards (offline shard reader) is not "
-                                  "ported to panogrf_tpu_torch yet")
     dev = resolve_device(args.device)
     h, w = args.height, args.width
     dh, dw = args.depth_height, args.depth_width
@@ -101,10 +106,16 @@ def main(argv=None) -> dict:
     face_coords = torch.stack([xs, ys], -1).reshape(1, -1, 2).float()
     coords8 = imgs_info.sample_train_coords(np.random.default_rng(0), h, w,
                                             8, device=dev)
+    reader = ShardReader(args.shards) if args.shards else None
+    num = min(args.num, len(reader)) if reader is not None else args.num
     metrics, seconds = [], []
-    for qi in range(args.num):
-        s = make_three_view_sample(SphereScene.random(8800 + qi, device=dev),
-                                   h, w, args.m3d_dist, seed=50 + qi)
+    for qi in range(num):
+        if reader is not None:
+            s = sample_to_torch(reader[qi], dev)
+        else:
+            s = make_three_view_sample(
+                SphereScene.random(8800 + qi, device=dev), h, w,
+                args.m3d_dist, seed=50 + qi)
         db = PanoDatabase("m3d", *(s[k].cpu().numpy() for k in (
             "rgb_panos", "depth_panos", "rots", "trans")))
         data = imgs_info.build_render_sample(s, coords8)
@@ -115,10 +126,23 @@ def main(argv=None) -> dict:
                 ref_info["imgs"], resize_linear(s["depth_panos"][ref_ids],
                                                 (dh, dw), axes=(1, 2)))
         ref_data["w2c"] = ref_info["w2c"]
-        w2c_faces, k = (torch.as_tensor(a, device=dev)
-                        for a in db.cube_cameras(imgs_info.QUE_ID))
-        gt_cube = cubemap.equi_to_cube(
-            s["rgb_panos"][imgs_info.QUE_ID][None], fw)[0]
+        q = imgs_info.QUE_ID
+        if "rgb_cubes" in s:
+            # stored faces are the ground truth, their stored poses the
+            # cameras, K that of the stored face width
+            gt_cube = s["rgb_cubes"][q]
+            cw = gt_cube.shape[1]
+            if cw != fw:
+                raise SystemExit(f"--height {h} implies face width {fw} but "
+                                 f"shards store {cw}; pass --height "
+                                 f"{cw * 2}")
+            w2c_faces = torch.cat([s["rots_cubes"][q],
+                                   s["trans_cubes"][q][..., None]], -1)
+            k = torch.as_tensor(cube_intrinsics(cw), device=dev)
+        else:
+            w2c_faces, k = (torch.as_tensor(a, device=dev)
+                            for a in db.cube_cameras(q))
+            gt_cube = cubemap.equi_to_cube(s["rgb_panos"][q][None], fw)[0]
         for f in range(6):
             synchronize(dev)
             t0 = time.perf_counter()

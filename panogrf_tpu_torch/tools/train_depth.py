@@ -1,7 +1,7 @@
 """Train the 360-degree MVS depth net on a frozen mono prior.
 
     python -m panogrf_tpu_torch.tools.train_depth [--cfg <yaml>] \\
-        [--steps N] [--height H --width W] [--views V] \\
+        [--steps N] [--height H --width W] [--views V] [--shards DIR] \\
         [--mono-ckpt F] [--mvs-uncertainty] [--new-reg3dnet] \\
         [--model mvs|fnet] [--device cpu]
 
@@ -10,9 +10,10 @@ e.g. ``configs/depth/m3d_mvs.yaml``) supplies height, width, views,
 batch, lr, view spacing, depth range, hypotheses and run name; a flag
 given on the command line wins over it.  Each step draws ``--batch``
 procedural scenes from ``np.random.default_rng(2022)`` and renders them
-on the device (the 3-view sample for V <= 3, else the V-view sample),
-ordered [0, 1] for 2 views and [0, V-1, 1, ..., V-2] otherwise, so index
-1 is the reference view whose depth (clipped to ``--max-depth``) is
+on the device (the 3-view sample for V <= 3, else the V-view sample), or
+with ``--shards`` draws random samples of the shard directory (which must
+hold at least V views each).  Views are ordered [0, 1] for 2 views and
+[0, V-1, 1, ..., V-2] otherwise, so index 1 is the reference view whose depth (clipped to ``--max-depth``) is
 supervised and every other index a source.  The frozen UniFuse prior runs
 on the reference view in eval mode under ``torch.inference_mode`` and
 gives the MVS net its mono depth and features.  The MVS net (its 3D
@@ -32,7 +33,7 @@ prior under ``d_net.*``.  The run resumes from the newest checkpoint of
 on the CUDA device and raises without one unless ``--device cpu`` is
 given.
 
-Not ported yet, and refused with an error: ``--mesh`` and ``--shards``.
+Not ported yet, and refused with an error: ``--mesh``.
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ import torch
 
 from panogrf_tpu_torch.config import load_config
 from panogrf_tpu_torch.core import cubemap
+from panogrf_tpu_torch.data.shards import ShardReader, sample_to_torch
 from panogrf_tpu_torch.data.synthetic import (SphereScene,
                                               make_multi_view_sample,
                                               make_three_view_sample)
@@ -73,7 +75,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--views", type=int, default=2, metavar="V",
                     help="V-view MVS: the reference's cost is averaged over "
                          "the V-1 sources")
-    ap.add_argument("--shards", default=None, help="not ported yet")
+    ap.add_argument("--shards", default=None,
+                    help="train on this shard directory's samples instead "
+                         "of procedural scenes")
     ap.add_argument("--mono-ckpt", default=None,
                     help="frozen mono prior: a train_mono checkpoint file")
     ap.add_argument("--m3d-dist", type=float, default=1.0)
@@ -118,12 +122,9 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def _refuse_unported(args) -> None:
-    for what, asked in {"--mesh (multi-GPU training)": args.mesh,
-                        "--shards (offline shard reader)": args.shards
-                        }.items():
-        if asked:
-            raise NotImplementedError(f"{what} is not ported to "
-                                      "panogrf_tpu_torch yet")
+    if args.mesh:
+        raise NotImplementedError("--mesh (multi-GPU training) is not "
+                                  "ported to panogrf_tpu_torch yet")
 
 
 def view_order(views: int) -> list:
@@ -154,6 +155,7 @@ def build(args: argparse.Namespace, log_fn=None) -> tuple:
     fnet = args.model == "fnet"
     mono = None if fnet else load_mono(args.mono_ckpt, args.max_depth, dev)
     rng = np.random.default_rng(2022)
+    reader = ShardReader(args.shards) if args.shards else None
     order = view_order(args.views)
     V = len(order)
 
@@ -166,14 +168,23 @@ def build(args: argparse.Namespace, log_fn=None) -> tuple:
     def make_batch() -> dict:
         samples = []
         for _ in range(args.batch):
-            scene = SphereScene.random(int(rng.integers(1 << 30)),
-                                       device=dev)
-            seed = int(rng.integers(1 << 30))
-            if V <= 3:
-                s = make_three_view_sample(scene, H, W, args.m3d_dist, seed)
+            if reader is not None:
+                s = reader[int(rng.integers(len(reader)))]
+                if s["rgb_panos"].shape[0] < V:
+                    raise SystemExit(
+                        f"--views {V} but data has "
+                        f"{s['rgb_panos'].shape[0]} views per sample")
+                s = sample_to_torch(s, dev)
             else:
-                s = make_multi_view_sample(scene, H, W, V, args.m3d_dist,
-                                           seed)
+                scene = SphereScene.random(int(rng.integers(1 << 30)),
+                                           device=dev)
+                seed = int(rng.integers(1 << 30))
+                if V <= 3:
+                    s = make_three_view_sample(scene, H, W, args.m3d_dist,
+                                               seed)
+                else:
+                    s = make_multi_view_sample(scene, H, W, V,
+                                               args.m3d_dist, seed)
             samples.append(s)
         batch = {k: torch.stack([s[k][order] for s in samples])
                  for k in ("rgb_panos", "rots", "trans")}

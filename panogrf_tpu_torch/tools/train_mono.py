@@ -1,19 +1,21 @@
 """Finetune a 360-degree mono-depth net (UniFuse by default).
 
     python -m panogrf_tpu_torch.tools.train_mono --steps 200 \\
-        --height 128 --width 256 [--loss l1_sphere|berhu|gaussian_nll] \\
+        --height 128 --width 256 [--shards DIR] \\
+        [--loss l1_sphere|berhu|gaussian_nll] \\
         [--uncertainty] [--mono-net UniFuse|Equi|ERP+TP|Cube] \\
         [--nrows 4 --patch-size 64] [--num-layers 2|18|34] [--device cpu]
 
 Port of the repo's ``tools/train_mono.py``: each step draws ``--batch``
 procedural scenes from ``np.random.default_rng(2022)`` (per sample a
 ``SphereScene.random`` seed, then the seed of the 3-view sample at
-spacing 0.5), renders them on the device, trains on the middle view's
-ImageNet-normalised panorama (and its cubemap at H/2 for UniFuse and
-Cube; ERP+TP cuts its tangent patches itself, ``--nrows`` rows of
-``--patch-size`` pixels) against its depth clipped to ``--max-depth``,
-on a ResNet (``--num-layers`` 18, 34) or MobileNetV2 (2) encoder, with
-Adam at a
+spacing 0.5) and renders them on the device, or with ``--shards`` draws
+per sample a random sample of the shard directory and a random view of
+it.  It trains on the middle (the drawn) view's ImageNet-normalised
+panorama (and its cubemap at H/2 for UniFuse and Cube; ERP+TP cuts its
+tangent patches itself, ``--nrows`` rows of ``--patch-size`` pixels)
+against its depth clipped to ``--max-depth``, on a ResNet
+(``--num-layers`` 18, 34) or MobileNetV2 (2) encoder, with Adam at a
 constant lr behind an element-wise gradient clip of 1
 (``train/depth_trainer.py``).  Checkpoints land in
 ``data/depth_model/<name>/checkpoint_<step>.pth``; ``--vis-interval``
@@ -22,7 +24,7 @@ resumes from the newest checkpoint of ``<name>``, then prints the ERP
 depth metrics of 2 more batches.  It runs on the CUDA device and raises
 without one unless ``--device cpu`` is given.
 
-Not ported yet, and refused with an error: ``--shards`` and ``--mesh``.
+Not ported yet, and refused with an error: ``--mesh``.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import numpy as np
 import torch
 
 from panogrf_tpu_torch.core import cubemap
+from panogrf_tpu_torch.data.shards import ShardReader
 from panogrf_tpu_torch.data.synthetic import (SphereScene,
                                               make_three_view_sample)
 from panogrf_tpu_torch.models.unifuse import normalize_imagenet, select_mono
@@ -48,7 +51,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--height", type=int, default=128)
     ap.add_argument("--width", type=int, default=256)
     ap.add_argument("--batch", type=int, default=2)
-    ap.add_argument("--shards", default=None, help="not ported yet")
+    ap.add_argument("--shards", default=None,
+                    help="train on this shard directory's samples instead "
+                         "of procedural scenes")
     ap.add_argument("--loss", default="l1_sphere")
     ap.add_argument("--uncertainty", action="store_true",
                     help="(mu, sigma) head trained with the Gaussian NLL")
@@ -77,11 +82,9 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def _refuse_unported(args) -> None:
-    for what, asked in {"--shards (offline shard reader)": args.shards,
-                        "--mesh (multi-GPU training)": args.mesh}.items():
-        if asked:
-            raise NotImplementedError(f"{what} is not ported to "
-                                      "panogrf_tpu_torch yet")
+    if args.mesh:
+        raise NotImplementedError("--mesh (multi-GPU training) is not "
+                                  "ported to panogrf_tpu_torch yet")
 
 
 def build(args: argparse.Namespace, log_fn=None) -> tuple:
@@ -102,16 +105,26 @@ def build(args: argparse.Namespace, log_fn=None) -> tuple:
     # UniFuse and the Cube ablation read the cubemap input
     with_cube = args.mono_net in ("UniFuse", "Cube")
     rng = np.random.default_rng(2022)
+    reader = ShardReader(args.shards) if args.shards else None
+
+    def draw_view() -> tuple:
+        """(rgb (H, W, 3), depth (H, W, 1)) of one training view."""
+        if reader is not None:
+            s = reader[int(rng.integers(len(reader)))]
+            v = int(rng.integers(s["rgb_panos"].shape[0]))
+            return (torch.as_tensor(s["rgb_panos"][v], device=dev),
+                    torch.as_tensor(s["depth_panos"][v], device=dev))
+        scene = SphereScene.random(int(rng.integers(1 << 30)), device=dev)
+        s = make_three_view_sample(scene, H, W, 0.5,
+                                   seed=int(rng.integers(1 << 30)))
+        return s["rgb_panos"][1], s["depth_panos"][1]
 
     def make_batch() -> dict:
         eqs, gts = [], []
         for _ in range(args.batch):
-            scene = SphereScene.random(int(rng.integers(1 << 30)),
-                                       device=dev)
-            s = make_three_view_sample(scene, H, W, 0.5,
-                                       seed=int(rng.integers(1 << 30)))
-            eqs.append(s["rgb_panos"][1])
-            gts.append(torch.clamp(s["depth_panos"][1], 0, args.max_depth))
+            rgb, d = draw_view()
+            eqs.append(rgb)
+            gts.append(torch.clamp(d, 0, args.max_depth))
         equi = normalize_imagenet(torch.stack(eqs))
         batch = {"equi": equi, "gt_depth": torch.stack(gts)}
         if with_cube:

@@ -1,14 +1,17 @@
-"""Train the generalizable renderer on procedural scenes.
+"""Train the generalizable renderer on procedural scenes or array shards.
 
     python -m panogrf_tpu_torch.tools.train_renderer [--cfg <yaml>] \\
-        [--steps N] [--pool P] [--mv V] [--count-jitter 64,64,48,32] \\
+        [--steps N] [--pool P | --shards DIR] [--mv V] \\
+        [--count-jitter 64,64,48,32] \\
         [--depth-source gt|stack] [--mono-ckpt F] [--mvs-ckpt F] \\
         [--wo-stereo] [--device cpu]
 
 Port of the repo's ``tools/train_renderer.py``.  It reads the repo's YAML
 configs (the default config without ``--cfg``), pre-renders a pool of
-``--pool`` synthetic scenes on the device, draws 512 training rays per
-step and trains with Adam on the config's lr schedule; the checkpoint
+``--pool`` synthetic scenes on the device, or with ``--shards`` reads a
+random sample of a shard directory (``tools/prepare_data.py``,
+``tools/import_lmdb.py``) each step, draws 512 training rays per step and
+trains with Adam on the config's lr schedule; the checkpoint
 lands in ``<save_dir>/<name>/latest/model.pth``.  Every ``val_interval``
 steps it renders the query view of 2 fixed validation scenes (seeds
 10000 + i), logs their mean PSNR / SSIM / WS-PSNR and keeps the best
@@ -24,12 +27,12 @@ views along one axis, the references ``range(reference_idx)`` (``range(V
 depth is the scenes' true depth, or with ``--depth-source stack``
 (implied by ``--mono-ckpt``/``--mvs-ckpt``/``--wo-stereo``) the frozen
 depth stack's prediction, each view paired with the next reference,
-computed once per scene.  A config with ``use_self_hit_prob`` trains the
+kept for the last ``DEPTH_CACHE_SIZE`` scenes met.  A config with ``use_self_hit_prob`` trains the
 consistency loss: the query view's depth comes from the same source,
 paired with the first reference.  It runs on the CUDA device and raises
 without one unless ``--device cpu`` is given.
 
-Not ported yet, and refused with an error: ``--shards`` and ``--mesh``.
+Not ported yet, and refused with an error: ``--mesh``.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ import torch
 
 from panogrf_tpu_torch.config import load_config
 from panogrf_tpu_torch.data import imgs_info
+from panogrf_tpu_torch.data.shards import ShardReader, sample_to_torch
 from panogrf_tpu_torch.data.synthetic import (SphereScene,
                                               make_multi_view_sample,
                                               make_three_view_sample)
@@ -57,6 +61,9 @@ from panogrf_tpu_torch.utils import visualize as V
 from panogrf_tpu_torch.utils.device import resolve_device
 
 TRAIN_RAYS = 512
+# stack depth maps kept, one a scene and view set: at a 256x512 depth grid
+# and two references, 1 MiB each
+DEPTH_CACHE_SIZE = 256
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -84,7 +91,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="MVS checkpoint (reference-layout file)")
     ap.add_argument("--wo-stereo", action="store_true",
                     help="mono-only stack depth: skip the MVS net")
-    ap.add_argument("--shards", default=None, help="not ported yet")
+    ap.add_argument("--shards", default=None,
+                    help="train on this shard directory's samples instead "
+                         "of the procedural pool")
     ap.add_argument("--mesh", type=int, default=0, help="not ported yet")
     ap.add_argument("--mv", type=int, default=0, metavar="V",
                     help="multi-view training with V > 2 views: references "
@@ -93,14 +102,9 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def _refuse_unported(args) -> None:
-    unported = {
-        "--shards (offline shard reader)": args.shards,
-        "--mesh (multi-GPU training)": args.mesh,
-    }
-    for what, asked in unported.items():
-        if asked:
-            raise NotImplementedError(f"{what} is not ported to "
-                                      "panogrf_tpu_torch yet")
+    if args.mesh:
+        raise NotImplementedError("--mesh (multi-GPU training) is not "
+                                  "ported to panogrf_tpu_torch yet")
 
 
 def build(args: argparse.Namespace, log_fn=None) -> tuple:
@@ -147,9 +151,12 @@ def build(args: argparse.Namespace, log_fn=None) -> tuple:
                                       seed=seed)
 
     rng = np.random.default_rng(cfg.train.seed)
-    pool = [make_sample(SphereScene.random(int(rng.integers(1 << 30)),
-                                           device=dev), i)
-            for i in range(args.pool)]
+    reader = ShardReader(args.shards) if args.shards else None
+    # without shards, a pool of procedural scenes rendered once
+    pool = [] if reader is not None else [
+        make_sample(SphereScene.random(int(rng.integers(1 << 30)),
+                                       device=dev), i)
+        for i in range(args.pool)]
 
     stack = None
     if args.depth_source == "stack" or (args.depth_source is None and (
@@ -164,17 +171,21 @@ def build(args: argparse.Namespace, log_fn=None) -> tuple:
         print(f"depth source: frozen stack (mono="
               f"{args.mono_ckpt or 'random'}, mvs={args.mvs_ckpt or '-'})")
 
-    # each scene's depth of given views on the init net's grid, computed
-    # once: the stack's prediction depends only on the scene's images and
-    # poses
+    # a scene's depth of given views on the init net's grid.  The stack's
+    # prediction depends only on the scene's images and poses, so it is
+    # kept for the DEPTH_CACHE_SIZE scenes met last (a shard directory
+    # holds far more than the card should keep); the stored depth is only
+    # resized, and is not kept
     depth_cache: dict = {}
 
     def view_depth(s: dict, key, ids, srcs) -> torch.Tensor:
+        if stack is None:
+            return resize_linear(s["depth_panos"][list(ids)], (DH, DW),
+                                 axes=(1, 2))
         if key not in depth_cache:
-            if stack is not None:
-                d = stack_depth_for_sample(stack, s, ids, srcs)["mvs_depth"]
-            else:
-                d = s["depth_panos"][list(ids)]
+            if len(depth_cache) >= DEPTH_CACHE_SIZE:
+                del depth_cache[next(iter(depth_cache))]
+            d = stack_depth_for_sample(stack, s, ids, srcs)["mvs_depth"]
             depth_cache[key] = resize_linear(d, (DH, DW), axes=(1, 2))
         return depth_cache[key]
 
@@ -185,8 +196,12 @@ def build(args: argparse.Namespace, log_fn=None) -> tuple:
 
     def batches():
         while True:
-            si = int(rng.integers(len(pool)))
-            s, key = pool[si], ("pool", si)
+            if reader is not None:
+                si = int(rng.integers(len(reader)))
+                s, key = sample_to_torch(reader[si], dev), ("shard", si)
+            else:
+                si = int(rng.integers(len(pool)))
+                s, key = pool[si], ("pool", si)
             coords = imgs_info.sample_train_coords(rng, H, W, TRAIN_RAYS,
                                                    device=dev)
             if mv:

@@ -55,6 +55,7 @@ from panogrf_tpu.train import losses as jl
 from panogrf_tpu.train import metrics as jm
 from panogrf_tpu.utils import torch_convert as tcv
 from panogrf_tpu_torch.core.sphere import get_convention as tconv
+from panogrf_tpu_torch.data import shards as tshards
 from panogrf_tpu_torch.data import synthetic as tsyn
 from panogrf_tpu_torch.models import depth_stack as tds
 from panogrf_tpu_torch.models import mvs as tmvs
@@ -797,14 +798,106 @@ def test_cli_train_depth_reads_its_recipe(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("tool,argv", [
-    ("train_mono", ["--shards", "x"]), ("train_mono", ["--mesh", "2"]),
-    ("train_depth", ["--mesh", "2"]),
-    ("train_depth", ["--shards", "x"])])
+    ("train_mono", ["--mesh", "2"]), ("train_depth", ["--mesh", "2"])])
 def test_cli_refuses_what_is_not_ported(tool, argv, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     mod = {"train_mono": train_mono, "train_depth": train_depth}[tool]
     with pytest.raises(NotImplementedError, match="not ported"):
         mod.build(mod.parse_args([*argv, *CLI_HW, "--device", "cpu"]))
+
+
+@pytest.fixture(scope="module")
+def shards_64(tmp_path_factory):
+    """3 procedural three-view samples at 64x128 in a shard directory."""
+    root = tmp_path_factory.mktemp("shards") / "s"
+    tshards.write_synthetic_dataset(root, 3, MH, MW, seed=6,
+                                    samples_per_shard=2, device="cpu")
+    return root
+
+
+def _jax_tool_first_batch(tool: str, argv: list, monkeypatch) -> dict:
+    """The first training batch of the JAX tool ``tools/<tool>.py`` on
+    ``argv``, as numpy: its nets are stubs (the batch takes nothing from
+    their weights but the frozen mono prior's outputs, which the stubs
+    fill with zeros) and its trainer hands over the first batch of the
+    stream it is given."""
+    import importlib.util
+    import sys
+
+    class Net:
+        def __init__(self, *a, **kw):
+            pass
+
+        def init(self, key, *a, **kw):
+            return {"params": {"w": jnp.zeros(1)}}
+
+        def apply(self, variables, equi, *a, **kw):
+            zeros = jnp.zeros(equi.shape[:-1] + (1,))
+            return {"pred_depth": zeros, "mono_feat": zeros}
+
+    class FirstBatch(Exception):
+        pass
+
+    class Trainer:
+        def __init__(self, *a, **kw):
+            pass
+
+        def restore(self):
+            pass
+
+        def fit(self, batches, steps):
+            raise FirstBatch(next(batches))
+
+    monkeypatch.setattr(junifuse, "select_mono", lambda cfg: Net())
+    monkeypatch.setattr(junifuse, "UniFuse", Net)
+    monkeypatch.setattr(jmvs, "MVSDepthModel", Net)
+    monkeypatch.setattr(jdt, "DepthTrainer", Trainer)
+    monkeypatch.setattr(sys, "argv", [tool, *argv])
+    monkeypatch.setattr(sys, "path", list(sys.path))
+    spec = importlib.util.spec_from_file_location(
+        f"jax_tool_{tool}", REPO / "tools" / f"{tool}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    with pytest.raises(FirstBatch) as got:
+        mod.main()
+    return {k: np.asarray(v) for k, v in got.value.args[0].items()}
+
+
+@pytest.mark.parametrize("tool", ["train_mono", "train_depth"])
+def test_cli_trains_on_shards(tool, shards_64, tmp_path, monkeypatch):
+    """``--shards`` at 64x128, batch 1: the first training batch equals the
+    JAX tool's first on the same shards and flags (the same shard sample
+    and, for train_mono, view: its rgb as the network input and cube
+    faces within 1e-6, the ground-truth depth, and for train_depth the
+    views and their poses, exactly), and one step trains; train_depth
+    refuses more views than the shards hold."""
+    monkeypatch.chdir(tmp_path)
+    mod = {"train_mono": train_mono, "train_depth": train_depth}[tool]
+    flags = ["--shards", str(shards_64), *CLI_HW, "--batch", "1",
+             "--steps", "1", "--vis-interval", "0"]
+    if tool == "train_depth":
+        flags += ["--hypotheses", "8"]
+    argv = flags + ["--device", "cpu"]
+    trainer, stream, steps = mod.build(mod.parse_args(argv))
+    batch = {k: v.numpy() for k, v in next(stream).items()}
+    want = _jax_tool_first_batch(tool, flags, monkeypatch)
+    exact = ["gt_depth"] + (["panos", "rots", "trans"]
+                            if tool == "train_depth" else [])
+    assert set(want) - {"mono_depth", "mono_feat"} <= set(batch)
+    for k in want:
+        if k in ("mono_depth", "mono_feat"):
+            continue
+        assert batch[k].shape == want[k].shape, k
+        if k in exact:
+            np.testing.assert_array_equal(batch[k], want[k], err_msg=k)
+        else:
+            np.testing.assert_allclose(batch[k], want[k], rtol=0, atol=1e-6,
+                                       err_msg=k)
+    trainer.fit(stream, steps)
+    assert trainer.step == 1
+    if tool == "train_depth":
+        with pytest.raises(SystemExit, match="--views 4"):
+            mod.build(mod.parse_args(argv + ["--views", "4"]))
 
 
 def test_clis_default_to_cuda(monkeypatch, tmp_path):

@@ -146,9 +146,18 @@ def random_variables(tree: dict, seed: int) -> dict:
     return jax.tree_util.tree_map_with_path(leaf, dict(tree))
 
 
+_TEMPLATES: dict = {}
+
+
 def jax_variables(module, seed: int, *args) -> dict:
-    return random_variables(template_init(module, jax.random.PRNGKey(0),
-                                          *args), seed)
+    """``random_variables`` on ``module``'s shape-only ``init`` tree; the
+    tree is traced once per module configuration and input shapes (the
+    eval and training cases of a net share it)."""
+    key = (repr(module), tuple((a.shape, str(a.dtype)) for a in args))
+    if key not in _TEMPLATES:
+        _TEMPLATES[key] = template_init(module, jax.random.PRNGKey(0),
+                                        *args)
+    return random_variables(_TEMPLATES[key], seed)
 
 
 def bn_buffers(model: torch.nn.Module) -> dict:
@@ -526,9 +535,14 @@ def test_mvs_variant_training_matches_jax(case):
         out["pred_depth"] = out.pop("depth")
         return out, dict(mut)
     with jax.enable_x64(True):
-        jtrainer = jdt.DepthTrainer(jforward, v, jdt.DepthTrainConfig())
-        (jloss, new), grads = jax.jit(jax.value_and_grad(
-            _jax_loss_fn(jtrainer), has_aux=True))(
+        @jax.jit
+        def jstep(params, state, b):
+            loss_fn = _jax_loss_fn(jdt.DepthTrainer(
+                jforward, {"params": params, **state},
+                jdt.DepthTrainConfig()))
+            return jax.value_and_grad(loss_fn, has_aux=True)(params, state,
+                                                             b)
+        (jloss, new), grads = jstep(
             v["params"], {"batch_stats": v["batch_stats"]}, batch)
 
     def tforward(b):
@@ -556,7 +570,10 @@ def test_mvs_variant_training_matches_jax(case):
 
 def _jax_loss_fn(trainer: "jdt.DepthTrainer"):
     """The JAX ``DepthTrainer``'s own ``loss_fn(params, state, batch) ->
-    (loss, new_state)``, taken from the closure of its jitted step."""
+    (loss, new_state)``, taken from the closure of its jitted step.  The
+    callers build the trainer inside their ``jax.jit`` program on its
+    traced variables: built eagerly, it initialises Adam's state op by
+    op, each op compiled on its own."""
     fn = trainer._train_step.__wrapped__
     cells = dict(zip(fn.__code__.co_freevars, fn.__closure__))
     return cells["loss_fn"].cell_contents
@@ -697,13 +714,12 @@ def test_cli_recipe_step_matches_jax(case, tmp_path, monkeypatch):
     batch, v = f64(batch), f64(v)
     state = {k: a for k, a in v.items() if k != "params"}
     with jax.enable_x64(True):
-        jtrainer = jdt.DepthTrainer(jforward, v, jcfg)
-        loss_fn = _jax_loss_fn(jtrainer)
-
         @jax.jit
         def jstep(params, state, b):
-            (loss, new), g = jax.value_and_grad(loss_fn, has_aux=True)(
-                params, state, b)
+            jtrainer = jdt.DepthTrainer(jforward,
+                                        {"params": params, **state}, jcfg)
+            (loss, new), g = jax.value_and_grad(
+                _jax_loss_fn(jtrainer), has_aux=True)(params, state, b)
             upd, _ = jtrainer.tx.update(g, jtrainer.tx.init(params), params)
             return loss, new, optax.clip(1.0).update(g, None)[0], \
                 optax.apply_updates(params, upd)

@@ -52,6 +52,8 @@ from panogrf_tpu.core import cubemap as jcube
 from panogrf_tpu.core import sphere as jsphere
 from panogrf_tpu.data import database as jdb
 from panogrf_tpu.data import imgs_info as jinfo
+from panogrf_tpu.data import online as jonline
+from panogrf_tpu.data import shards as jshards
 from panogrf_tpu.data import synthetic as jsyn
 from panogrf_tpu.ops import resample as jres
 from panogrf_tpu.renderer import diner as jdiner
@@ -913,11 +915,12 @@ def test_cube_cameras_and_faces_match_jax(scene):
 # 12-13. the render_cubes and ab_quality CLIs
 # ---------------------------------------------------------------------------
 
-def test_render_cubes_cli_matches_jax(tmp_path, scene, params):
-    """The CLI's six faces and metrics against the JAX tool's loop on the
-    same scene and weights: ``prepare_ref``, ``render_rays`` on each face's
-    perspective camera (the renderer's exact flags, 64 + 64 samples), the
-    faces ``equi_to_cube`` cuts from the query panorama, the metrics."""
+def _assert_cube_cli_matches_jax(tmp_path, params, argv, s, w2c, k, gt):
+    """Run ``render_cubes`` on ``argv`` with the ``params["full"]`` weights
+    and hold its first scene's six faces and metrics to the JAX tool's
+    loop on the sample ``s`` (numpy): ``prepare_ref``, ``render_rays`` on
+    each face camera ``w2c[f]`` with intrinsics ``k`` (the renderer's exact
+    flags, 64 + 64 samples), the metrics against the faces ``gt``."""
     ckpt = tmp_path / "model.pth"
     kw = dict(height=H, width=W, depth_hw=(DH, DW))
     torch.save({"network_state_dict": _port(kw, params["full"])
@@ -926,20 +929,16 @@ def test_render_cubes_cli_matches_jax(tmp_path, scene, params):
                                  "--width", str(W), "--depth-height",
                                  str(DH), "--depth-width", str(DW),
                                  "--out", str(tmp_path / "out"),
-                                 "--device", "cpu"])
-    s = {k: v.numpy() for k, v in tsyn.make_three_view_sample(
-        tsyn.SphereScene.random(8800), H, W, 0.5, seed=50).items()}
+                                 "--device", "cpu", *argv])
     data = jax.tree.map(np.asarray, jinfo.build_render_sample(
         s, jnp.zeros((1, 8, 2))))
     ref, que = data["ref_imgs_info"], data["que_imgs_info"]
     fw = H // 2
-    w2c, k = jdb.PanoDatabase("m3d", *(s[n] for n in (
-        "rgb_panos", "depth_panos", "rots", "trans"))).cube_cameras(1)
     coords = np.stack(np.meshgrid(np.arange(fw), np.arange(fw)), -1) \
         .reshape(1, -1, 2).astype(np.float32)
     jmodel = JR(**kw)
 
-    def faces(p, imgs, depth, w2c_ref, w2c, k):
+    def faces(p, imgs, depth, w2c_ref, w2c, k, gt):
         rd = jmodel.apply(p, imgs, depth, method=JR.prepare_ref)
         rd["w2c"] = w2c_ref
         out = jax.vmap(lambda w: jmodel.apply(
@@ -947,11 +946,10 @@ def test_render_cubes_cli_matches_jax(tmp_path, scene, params):
             ref["depth_range"], perspec_cam=(w[None], k[None]),
             method=JR.render_rays)["pixel_colors_nr_fine"])(w2c)
         pred = jnp.clip(out.reshape(6, fw, fw, 3), 0, 1)
-        gt = jcube.equi_to_cube(jnp.asarray(s["rgb_panos"][1]), fw)
         return pred, [jm.render_metrics(pred[f], gt[f]) for f in range(6)]
     pred, metrics = _jit(faces, params["full"], ref["imgs"],
                          s["depth_panos"][list(jinfo.REF_IDS)], ref["w2c"],
-                         w2c, k)
+                         w2c, k, gt)
     for f in range(6):
         np.testing.assert_allclose(
             np.load(tmp_path / "out" / f"0-face{f}-pred.npy"), pred[f],
@@ -960,6 +958,34 @@ def test_render_cubes_cli_matches_jax(tmp_path, scene, params):
             np.testing.assert_allclose(summary["faces"][f][key], v,
                                        rtol=1e-4, atol=1e-4, err_msg=key)
     assert (tmp_path / "out" / "metric.txt").exists()
+
+
+def test_render_cubes_cli_matches_jax(tmp_path, scene, params):
+    """The CLI's six faces and metrics against the JAX tool's loop on the
+    same scene and weights, the faces ``equi_to_cube`` cuts from the query
+    panorama as ground truth."""
+    s = {k: v.numpy() for k, v in tsyn.make_three_view_sample(
+        tsyn.SphereScene.random(8800), H, W, 0.5, seed=50).items()}
+    w2c, k = jdb.PanoDatabase("m3d", *(s[n] for n in (
+        "rgb_panos", "depth_panos", "rots", "trans"))).cube_cameras(1)
+    gt = _jit(lambda p: jcube.equi_to_cube(p, H // 2), s["rgb_panos"][1])
+    _assert_cube_cli_matches_jax(tmp_path, params, [], s, w2c, k, gt)
+
+
+def test_render_cubes_cli_on_shards_matches_jax(tmp_path, params):
+    """``--shards`` on cube shards that the JAX online generator wrote, as
+    the JAX tool reads them: the stored query faces are the ground truth,
+    the stored face poses ``[rots_cubes | trans_cubes]`` the cameras, with
+    ``cube_intrinsics`` of the stored face width."""
+    jonline.OnlineImageGenerator("val", H, W, with_cubes=True,
+                                 seed=4).write_shards(tmp_path / "cubes", 1)
+    s = jshards.ShardReader(tmp_path / "cubes")[0]
+    q = jinfo.QUE_ID
+    w2c = np.concatenate([s["rots_cubes"][q], s["trans_cubes"][q][..., None]],
+                         -1)
+    _assert_cube_cli_matches_jax(
+        tmp_path, params, ["--shards", str(tmp_path / "cubes")], s, w2c,
+        jdb.cube_intrinsics(H // 2), s["rgb_cubes"][q])
 
 
 def _diner_ckpt(tmp_path, params) -> str:
@@ -1031,8 +1057,7 @@ def test_ab_quality_trains_under_diner_and_count_jitter(tmp_path):
 
 
 def test_new_entry_points_default_to_cuda(monkeypatch, tmp_path):
-    """Without ``--device cpu`` and with no CUDA device, both CLIs raise;
-    ``--shards`` is refused."""
+    """Without ``--device cpu`` and with no CUDA device, both CLIs raise."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     small = ["--height", str(H), "--width", str(W), "--depth-height",
              str(DH), "--depth-width", str(DW), "--out", str(tmp_path)]
@@ -1040,5 +1065,3 @@ def test_new_entry_points_default_to_cuda(monkeypatch, tmp_path):
         render_cubes.main(small)
     with pytest.raises(RuntimeError, match="CUDA"):
         ab_quality.main(small[:-2] + ["--steps", "1"])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        render_cubes.main(small + ["--shards", "x", "--device", "cpu"])

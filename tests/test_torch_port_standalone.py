@@ -48,10 +48,10 @@ def test_no_source_file_mentions_jax():
     pattern = re.compile(r"import jax|from jax|flax|panogrf_tpu\.")
     offenders = [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")
                  if pattern.search(p.read_text())]
-    assert len(_modules()) >= 61
+    assert len(_modules()) >= 69
     # the depth stack's, the video slice's, depth training's, the
-    # multi-view and finetuning slice's, the renderer modes' and the
-    # depth-net variants' modules are among them
+    # multi-view and finetuning slice's, the renderer modes', the
+    # depth-net variants' and the data pipeline's modules are among them
     assert {f"panogrf_tpu_torch.{m}" for m in (
         "core.cubemap", "nn.resnet", "nn.fusion", "models.unifuse",
         "models.mvs", "models.depth_stack", "ops.cost_volume",
@@ -62,7 +62,10 @@ def test_no_source_file_mentions_jax():
         "tools.train_ft", "tools.render_ft", "tools.render_mv",
         "renderer.diner", "renderer.sph_solver", "data.database",
         "tools.render_cubes", "tools.ab_quality", "core.tangent",
-        "nn.erp_tp", "models.fnet", "models.uncert")} <= \
+        "nn.erp_tp", "models.fnet", "models.uncert", "data.shards",
+        "data.lmdb_reader", "data.lmdb_import", "data.readers",
+        "data.augment", "data.online", "tools.prepare_data",
+        "tools.import_lmdb")} <= \
         set(_modules())
     assert not offenders, offenders
 

@@ -501,7 +501,7 @@ def test_cli_trains_and_its_checkpoint_loads_in_jax(tmp_path, monkeypatch):
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
     cfg = str(REPO / "configs/gen_synthetic_small.yaml")
-    for extra in (["--mesh", "4"], ["--shards", "x"]):
+    for extra in (["--mesh", "4"],):
         with pytest.raises(NotImplementedError, match="not ported"):
             tcli.build(tcli.parse_args(["--cfg", cfg, "--device", "cpu",
                                         *extra]))

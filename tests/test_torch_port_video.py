@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from panogrf_tpu.data import imgs_info as jinfo
+from panogrf_tpu.data import shards as jshards
 from panogrf_tpu.data import synthetic as jsyn
 from panogrf_tpu.models import depth_stack as jds
 from panogrf_tpu.models import mvs as jmvs
@@ -249,9 +250,59 @@ def test_render_cli_eval_and_inter(tmp_path):
     assert summary["videos"][0]["frame_batch"] == 2
 
 
+def _read_frame(path) -> np.ndarray:
+    """An 8-bit frame the render CLI wrote (a PNG, or a ``.npy`` where
+    ``imageio`` is missing)."""
+    if path.exists():
+        import imageio.v2 as imageio
+        return np.asarray(imageio.imread(path))
+    return np.load(path.with_suffix(".npy"))
+
+
+def test_render_cli_on_shards_matches_jax(scene, tmp_path):
+    """``render --shards`` on a JAX-written shard of the scene: the CLI's
+    eval frame (the exact preset, 32 + 32 samples, the references at the
+    shard's depth) and its metrics against the JAX package's
+    ``render_image`` on the sample the JAX reader returns, with the same
+    weights.  The CLI writes the frame in 8 bits, so each value is held
+    to within one level of the JAX frame's and the metrics within 1e-3
+    of theirs."""
+    with jshards.ShardWriter(tmp_path / "shards") as w:
+        w.add(scene[0])
+    tm = _port_renderer("exact")
+    ckpt = tmp_path / "model.pth"
+    torch.save({"network_state_dict": tm.state_dict()}, ckpt)
+    summary = trender.main([
+        "--ckpt", str(ckpt), "--height", str(H), "--width", str(W),
+        "--depth-height", str(DH), "--depth-width", str(DW), "--preset",
+        "exact", "--samples", str(DN), "--fine-samples", str(DN),
+        "--shards", str(tmp_path / "shards"), "--num", "1", "--device",
+        "cpu", "--out", str(tmp_path / "out")])
+    assert len(summary["frames"]) == 1
+    s = jshards.ShardReader(tmp_path / "shards")[0]
+    coords = jinfo.sample_train_coords(np.random.default_rng(0), H, W, 8)
+    jdata = jinfo.build_render_sample(s, coords)
+    jref = jdata["ref_imgs_info"]
+    jref["mvs_depth"] = jnp.asarray(s["depth_panos"][list(jinfo.REF_IDS)])
+    jm = JR(height=H, width=W, depth_hw=(DH, DW), depth_sample_num=DN,
+            fine_depth_sample_num=DN)
+    want = jfr.render_image(jm, tcv.convert_renderer(numpy_sd(tm)), jref,
+                            jdata["que_imgs_info"]["c2w"],
+                            jdata["que_imgs_info"]["depth_range"],
+                            chunk=H * W)["rgb"]
+    gt = s["rgb_panos"][jinfo.QUE_ID]
+    want8 = np.clip(np.asarray(want) * 255.0, 0, 255).astype(np.int16)
+    got8 = _read_frame(tmp_path / "out" / "0-nr_fine.png").astype(np.int16)
+    assert got8.shape == (H, W, 3)
+    assert np.abs(got8 - want8).max() <= 1
+    metrics = jmetrics.render_metrics(want, jnp.asarray(gt))
+    for k, v in metrics.items():
+        np.testing.assert_allclose(summary["frames"][0][k], float(v),
+                                   rtol=1e-3, err_msg=k)
+
+
 def test_render_cli_refuses_what_is_not_ported(tmp_path):
-    for extra in (["--shards", "x"], ["--mesh", "2"],
-                  ["--lpips-weights", "w.npz"]):
+    for extra in (["--mesh", "2"], ["--lpips-weights", "w.npz"]):
         with pytest.raises(NotImplementedError, match="not ported"):
             trender.main(["--device", "cpu", "--out", str(tmp_path), *extra])
 
