@@ -56,7 +56,14 @@ the wrapper's host cost, then drives the port's two paths at full width
   ``train_depth`` on 256x512 shards (6 steps each),
   ``render --shards`` eval frames and ``render_cubes --shards`` faces
   against the stored faces, and the online generator, the readers'
-  resize and the augmentations on CUDA against the CPU at 64x128.
+  resize and the augmentations on CUDA against the CPU at 64x128;
+* multi-GPU: ``--mesh 1`` (NCCL, one rank) through ``train_mono``,
+  ``train_depth``, ``train_renderer`` (3 steps each) and ``render`` (an
+  eval frame) at full width against the same CLIs without ``--mesh``, then
+  the sharded depth step, the sharded renderer step and the sharded
+  serving frame of ``panogrf_tpu_torch/parallel/programs.py`` on 2 ranks
+  sharing the card (gloo, CUDA tensors) against 1 rank, with ms/step and
+  ms/frame per world size and the ``mlp2`` launches per rank.
 
 Each path checks that it went through its kernels.  Each phase prints one
 JSON line; any failure raises, so the process exits non-zero.  The last
@@ -99,6 +106,8 @@ from panogrf_tpu_torch.models import unifuse as tunifuse
 from panogrf_tpu_torch.nn import blocks as tblocks
 from panogrf_tpu_torch.nn.blocks import resize_linear
 from panogrf_tpu_torch.ops.kernels import _build, fused_mlp
+from panogrf_tpu_torch.parallel import programs
+from panogrf_tpu_torch.parallel.launch import run_ranks
 from panogrf_tpu_torch.renderer import diner as diner_mod
 from panogrf_tpu_torch.renderer import full_render, render_ops
 from panogrf_tpu_torch.renderer.presets import (PRESET_CHUNK,
@@ -2587,9 +2596,298 @@ def data_pipeline(pool_ms) -> dict:
             "mlp3": trained["mlp3"]}
 
 
+# ---------------------------------------------------------------------------
+# multi-GPU: --mesh 1 (NCCL) through the CLIs, 2 ranks on the card (gloo)
+# ---------------------------------------------------------------------------
+
+MESH_STEPS = 3           # 1 warm-up + 2 timed
+MESH_RUNS = Path("data/chip_smoke_mesh")
+
+
+def timed_cli(tool, argv: list) -> tuple:
+    """``tool.run_rank`` in process (its run without a mesh, or with
+    ``--mesh 1`` through ``main``: a world of one NCCL rank), each step's
+    end timed with a CUDA event and its kernel launches counted.  Returns
+    (run_rank's result: losses, first-step gradients, checkpoint; the
+    steps; the ms between step ends; the seconds of the whole run)."""
+    steps = []
+
+    def on_step(step, metrics):
+        torch.cuda.synchronize()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        steps.append({"loss": metrics["loss"], "ev": ev,
+                      "mlp2": fused_mlp.MLP2_LAUNCHES,
+                      "lanes": fused_mlp.VARIANT_LAUNCHES["mlp2_lanes"],
+                      "mlp3": fused_mlp.MLP3_LAUNCHES})
+        fused_mlp.reset_launches()
+
+    fused_mlp.reset_launches()
+    t0 = time.perf_counter()
+    if "--mesh" in argv:
+        result = tool.main(argv, log_fn=on_step)
+    else:
+        result = tool.run_rank(tool.parse_args(argv), log_fn=on_step)
+    seconds = time.perf_counter() - t0
+    ms = [a["ev"].elapsed_time(b["ev"]) for a, b in zip(steps, steps[1:])]
+    return result, steps, ms, seconds
+
+
+def _launch_check(phase: str, runs: dict, per_step: int) -> None:
+    """Each run's mlp2 launches: ``per_step`` a step (a frame), all
+    ``lanes``; mlp3 none."""
+    for run, r in runs.items():
+        want = [per_step] * len(r["mlp2"])
+        if r["mlp2"] != want or r["lanes"] != r["mlp2"] or any(r["mlp3"]):
+            raise AssertionError(f"{phase} {run}: mlp2 {r['mlp2']} (want "
+                                 f"{want}), lanes {r['lanes']}, mlp3 "
+                                 f"{r['mlp3']}")
+
+
+def _cli_runs(phase: str, tool, argv: list, grad_rtol: float,
+              per_step: int, name=None) -> dict:
+    """``tool`` without ``--mesh`` and with ``--mesh 1`` (NCCL), each fresh
+    under its own ``name`` when one is given: the same first losses
+    (1e-4), the first step's clipped gradients within ``_grad_gap``'s
+    ``grad_rtol``, ``per_step`` mlp2 launches a step, all ``lanes``, no
+    mlp3.  Emits the phase's line."""
+    runs, grads = {}, {}
+    for run, extra in (("one", []), ("mesh1", ["--mesh", "1"])):
+        named = [] if name is None else ["--name", f"{name}_{run}"]
+        if name is not None:
+            shutil.rmtree(f"{DEPTH_RUNS}/{name}_{run}", ignore_errors=True)
+        result, steps, ms, seconds = timed_cli(tool, argv + named + extra)
+        grads[run] = result["grads"]
+        runs[run] = {
+            "losses": [s["loss"] for s in steps],
+            "ms_per_step": statistics.median(ms), "ms_runs": ms,
+            "cli_seconds": seconds,
+            "mlp2": [s["mlp2"] for s in steps],
+            "lanes": [s["lanes"] for s in steps],
+            "mlp3": [s["mlp3"] for s in steps]}
+    gap = _grad_gap(grads["mesh1"], grads["one"], grad_rtol)
+    emit({"phase": phase, "argv": argv, "steps": MESH_STEPS,
+          "card": gpu_name_and_power(), **runs,
+          "first_step_grad_gap": gap, "grad_rtol": grad_rtol})
+    one, mesh = runs.values()
+    if len(mesh["losses"]) != MESH_STEPS or not all(
+            np.isfinite(mesh["losses"])) or not np.isclose(
+            mesh["losses"][0], one["losses"][0], rtol=1e-4) \
+            or gap[0] > 1.0:
+        raise AssertionError(f"{phase}: losses {one['losses']} / "
+                             f"{mesh['losses']}, gradient gap {gap}")
+    _launch_check(phase, runs, per_step)
+    return runs
+
+
+def read_frame(png: Path) -> np.ndarray:
+    """A frame the render CLI wrote: its PNG, or the ``.npy`` it writes
+    without imageio."""
+    if png.exists():
+        import imageio.v2 as imageio
+        return np.asarray(imageio.imread(png))
+    return np.load(png.with_suffix(".npy"))
+
+
+def _mesh_render_cli() -> None:
+    """The render CLI's eval frame (512x1024, serving, 4096-ray chunks,
+    the scene's depth) without ``--mesh`` and with ``--mesh 1`` (NCCL,
+    ``render_image_sharded``): the same metrics and frame to one uint8
+    level, 160 mlp2 launches in process, all ``lanes``."""
+    chunk = 4096
+    per_frame = H * W // chunk + (H // 2) * (W // 2) // chunk
+    runs, frames = {}, {}
+    for run, extra in (("one", []), ("mesh1", ["--mesh", "1"])):
+        out = MESH_RUNS / f"render_{run}"
+        fused_mlp.reset_launches()
+        t0 = time.perf_counter()
+        summary = render_tool.main([
+            "--height", str(H), "--width", str(W), "--depth-height",
+            str(DH), "--depth-width", str(DW), "--preset", "serving",
+            "--chunk", str(chunk), "--num", "1", "--no-skip", "--out",
+            str(out), "--device", "cuda", *extra])
+        runs[run] = {"cli_seconds": time.perf_counter() - t0,
+                     **summary["mean"],
+                     "mlp2": [fused_mlp.MLP2_LAUNCHES],
+                     "lanes": [fused_mlp.VARIANT_LAUNCHES["mlp2_lanes"]],
+                     "mlp3": [fused_mlp.MLP3_LAUNCHES]}
+        frames[run] = read_frame(out / "0-nr_fine.png")
+    one, other = frames.values()
+    diff = int(np.abs(one.astype(np.int16) - other).max())
+    emit({"phase": "mesh_render", "hw": [H, W], "chunk": chunk,
+          "card": gpu_name_and_power(), **runs, "max_uint8_diff": diff})
+    _launch_check("mesh_render", runs, per_frame)
+    psnr = [r["psnr_nr"] for r in runs.values()]
+    if diff > 1 or not np.isclose(*psnr, rtol=1e-4):
+        raise AssertionError(f"mesh_render: frames differ ({diff}) {runs}")
+
+
+def _grad_gap(a: dict, b: dict, rtol: float) -> tuple:
+    """(the worst ratio of ``a``'s gradient errors against ``b``'s to their
+    allowance, its tensor): ``rtol`` of each tensor's largest plus 1e-5 of
+    the largest of all (a conv bias in front of an instance norm has a
+    gradient that is 0 but for rounding noise); 1 or less passes."""
+    top = max(float(np.abs(v).max()) for v in b.values())
+    return max((float(np.abs(a[k] - v).max())
+                / (rtol * float(np.abs(v).max()) + 1e-5 * top), k)
+               for k, v in b.items())
+
+
+def _mono_job(h: int, w: int, batch: int, dtype, steps: int) -> tuple:
+    """``programs.depth_steps`` of the mono recipe's UniFuse (seeded) on a
+    random batch at h x w in ``dtype``."""
+    mono = tunifuse.select_mono({"mono_net": "UniFuse", "max_depth": 10.0,
+                                 "mono_uncertainty": False,
+                                 "mono_num_layers": 18, "nrows": 4,
+                                 "patchsize": 64})
+    tblocks.init_parameters_(mono, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(5)
+    equi = tunifuse.normalize_imagenet(torch.tensor(
+        rng.uniform(size=(batch, h, w, 3)), dtype=dtype))
+    depth_batch = {"equi": equi.numpy(),
+                   "cube": cubemap.equi_to_cube(equi, h // 2).numpy(),
+                   "gt_depth": rng.uniform(0.5, 9.0, (batch, h, w, 1))
+                   .astype(equi.numpy().dtype)}
+    return (programs.depth_steps, dict(
+        model=mono.to(dtype), batch=depth_batch, inputs=("equi", "cube"),
+        cfg=depth_trainer.DepthTrainConfig(aux_d1_weight=0.0),
+        device="cuda", steps=steps))
+
+
+def mesh_programs(ranks: int, backend: str) -> dict:
+    """The sharded depth step (the mono recipe's UniFuse at 512x1024, batch
+    max(2, ranks) split over the ranks, cross-rank BatchNorm), the sharded
+    renderer step (the 2-view recipe's model and batch, 512 rays split)
+    and the sharded serving frame (bench.py's inputs, 4096-ray chunks,
+    coarse pass at (H/2, W/2)) on ``ranks`` ranks over ``backend`` (gloo:
+    all on the one card), against the same programs on 1 rank: first
+    losses within 1e-4, the renderer's first-step gradients within
+    ``_grad_gap``'s 1e-3, the frame within 2e-3; mlp2 launches per rank
+    2 a step and 160 / ``ranks`` a frame, all ``lanes``; mlp3 none.  The
+    depth net's float32 gradients are ill-conditioned (its stacked
+    training BatchNorms move them by several 1e-2 of a tensor's largest
+    with the order of the sums), so one more step in float64 at 256x512
+    holds them to 1e-6.  Returns the launches per rank."""
+    batch_size = max(2, ranks)
+    trainer, stream, _ = train_renderer.build(train_renderer.parse_args(
+        ["--cfg", TRAIN_CFG, "--pool", "1", "--device", "cpu"]))
+    batch = {k: {kk: vv.numpy() for kk, vv in v.items()}
+             if isinstance(v, dict) else v.numpy()
+             for k, v in next(stream).items()}
+    serving = NeuralRayGenRenderer(
+        height=H, width=W, depth_hw=(DH, DW), **preset_kwargs("serving"),
+        device="cpu", generator=torch.Generator().manual_seed(0))
+    ref_info, c2w, qdr = bench_inputs(H, W, DH, DW)
+    chunk = 4096
+    jobs = [_mono_job(H, W, batch_size, torch.float32, MESH_STEPS),
+            (programs.renderer_steps, dict(
+                model=trainer.model, batch=batch, cfg=trainer.cfg,
+                device="cuda", steps=MESH_STEPS)),
+            (programs.render_frame, dict(
+                model=serving, ref_info=ref_info, que_c2w=c2w,
+                que_depth_range=qdr, device="cuda", coarse_lowres=2,
+                chunk=chunk, repeat=2)),
+            _mono_job(H // 2, W // 2, batch_size, torch.float64, 1)]
+    worlds, seconds = {}, {}
+    for n in (1, ranks):
+        t0 = time.perf_counter()
+        worlds[n] = run_ranks(programs.run_all, n, "cuda", (jobs,),
+                              backend=backend, deadline_s=900)
+        seconds[n] = time.perf_counter() - t0
+    (d1, r1, f1, e1), (dn, rn, fn, en) = worlds[1], worlds[ranks]
+    rows = {
+        "mesh_depth_step": {
+            "what": f"UniFuse 512x1024, batch {batch_size}, train_mono's "
+                    f"recipe",
+            "losses": {1: d1["losses"], ranks: dn["losses"]},
+            "grad_gap_float32": _grad_gap(dn["grads"], d1["grads"], 1e-2),
+            "float64_256x512": {
+                "losses": {1: e1["losses"], ranks: en["losses"]},
+                "grad_gap": _grad_gap(en["grads"], e1["grads"], 1e-6)},
+            "ms_per_step": {1: statistics.median(d1["ms"]),
+                            ranks: statistics.median(dn["ms"])},
+            "ms_runs": {1: d1["ms"], ranks: dn["ms"]},
+            "launches": {1: d1["launches"], ranks: dn["launches"]}},
+        "mesh_renderer_step": {
+            "what": f"{TRAIN_CFG}, 512 rays",
+            "losses": {1: [float(m["loss"]) for m in r1["metrics"]],
+                       ranks: [float(m["loss"]) for m in rn["metrics"]]},
+            "grad_gap": _grad_gap(rn["grads"], r1["grads"], 1e-3),
+            "ms_per_step": {1: statistics.median(r1["ms"]),
+                            ranks: statistics.median(rn["ms"])},
+            "ms_runs": {1: r1["ms"], ranks: rn["ms"]},
+            "launches": {1: r1["launches"], ranks: rn["launches"]}},
+        "mesh_frame": {
+            "what": "serving 512x1024, 4096-ray chunks, coarse at H/2",
+            "max_abs_diff": float(np.abs(fn["rgb"] - f1["rgb"]).max()),
+            "ms_per_frame": {1: statistics.median(f1["ms"]),
+                             ranks: statistics.median(fn["ms"])},
+            "ms_runs": {1: f1["ms"], ranks: fn["ms"]},
+            "launches": {1: f1["launches"], ranks: fn["launches"]}}}
+    card = gpu_name_and_power()
+    for phase, row in rows.items():
+        emit({"phase": phase, "backend": backend, "ranks": ranks,
+              "card": card, "group_seconds": seconds, **row})
+    dl, rl, fl = (rows[k]["launches"] for k in rows)
+    per_frame = H * W // chunk + (H // 2) * (W // 2) // chunk
+    checks = {
+        "depth_loss": bool(np.isclose(dn["losses"][0], d1["losses"][0],
+                                      rtol=1e-4)),
+        "depth_float64": bool(np.isclose(en["losses"][0], e1["losses"][0],
+                                         rtol=1e-9)) and
+        rows["mesh_depth_step"]["float64_256x512"]["grad_gap"][0] <= 1.0,
+        "renderer_loss": bool(np.isclose(rn["metrics"][0]["loss"],
+                                         r1["metrics"][0]["loss"],
+                                         rtol=1e-4)),
+        "renderer_grads": rows["mesh_renderer_step"]["grad_gap"][0] <= 1.0,
+        "frame": rows["mesh_frame"]["max_abs_diff"] <= 2e-3,
+        "depth_launches": dl[1]["mlp2"] == [0] and
+        dl[ranks]["mlp2"] == [0] * ranks,
+        "train_launches": rl[1]["mlp2"] == [2 * MESH_STEPS] and
+        rl[ranks]["mlp2"] == [2 * MESH_STEPS] * ranks,
+        "frame_launches": fl[1]["mlp2"] == [per_frame] and
+        fl[ranks]["mlp2"] == [per_frame // ranks] * ranks,
+        "lanes_no_mlp3": all(w["mlp2_lanes"] == w["mlp2"] and
+                             not any(w["mlp3"])
+                             for x in (dl, rl, fl) for w in x.values())}
+    if not all(checks.values()):
+        raise AssertionError(f"mesh programs: checks {checks}")
+    return {"frame_per_rank": fl[ranks]["mlp2"],
+            "train_per_rank_per_step": [c // MESH_STEPS
+                                        for c in rl[ranks]["mlp2"]]}
+
+
+def parallel_group() -> dict:
+    """The ``parallel`` group: ``--mesh 1`` (NCCL) through ``train_mono``,
+    ``train_depth``, ``train_renderer`` and ``render`` against the same
+    CLIs without it, then ``mesh_programs`` on 2 gloo ranks sharing the
+    card.  Returns the mlp2 launches per rank of the sharded frame and
+    step."""
+    MESH_RUNS.mkdir(parents=True, exist_ok=True)
+    # float32 BatchNorm: the world-1 synced statistics (mean(x^2) -
+    # mean(x)^2) round otherwise than cuDNN's, and the stacked training
+    # BatchNorms move the gradients by some 1e-2 of a tensor's largest
+    # (measured on an H100: mono 5.8e-2 in the deepest encoder layer, MVS
+    # 1.3e-2); a gradient of the wrong sign or none is off by its size
+    _cli_runs("mesh_train_mono", train_mono, [
+        "--height", str(H), "--width", str(W), "--batch", "2", "--steps",
+        str(MESH_STEPS), "--log-interval", "1", "--vis-interval", "0",
+        "--device", "cuda"], 2e-1, 0, "chip_smoke_mesh_train_mono")
+    _cli_runs("mesh_train_depth", train_depth, [
+        "--cfg", MVS_CFG, "--batch", "2", "--steps", str(MESH_STEPS),
+        "--log-interval", "1", "--vis-interval", "0", "--device", "cuda"],
+        2e-1, 0, "chip_smoke_mesh_train_depth")
+    # the renderer has no training BatchNorm: one rank's step is the plain
+    # step's arithmetic
+    _cli_runs("mesh_train", train_renderer, [
+        "--cfg", TRAIN_CFG, "--pool", "2", "--steps", str(MESH_STEPS),
+        "--log-interval", "1", "--device", "cuda"], 1e-3, 2)
+    _mesh_render_cli()
+    return mesh_programs(2, "gloo")
+
 PHASES = ("kernels", "serving", "training", "depth_stack",
           "depth_training", "render_cli", "video", "mv_ft", "modes",
-          "depth_variants", "data")
+          "depth_variants", "data", "parallel")
 
 
 def main(argv=None) -> int:
@@ -2599,7 +2897,8 @@ def main(argv=None) -> int:
                     help="comma list of the groups to run, of "
                          f"{', '.join(PHASES)} (default: all; the result "
                          "lines need all)")
-    phases = set(ap.parse_args(argv).phases.split(","))
+    args = ap.parse_args(argv)
+    phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2686,6 +2985,12 @@ def main(argv=None) -> int:
         row["launches_shards_render"] = data["render"]
         row["launches_shards_render_cubes"] = data["render_cubes"]
         row3["launches"] += data["mlp3"]
+    if "parallel" in phases:
+        # each run asserts its own mlp3 count of 0
+        par = parallel_group()
+        row["launches_mesh_frame_per_rank"] = par["frame_per_rank"]
+        row["launches_mesh_train_per_rank_per_step"] = \
+            par["train_per_rank_per_step"]
     # no path of either package calls mlp3: the main paths launch it 0 times
     # (render_cli asserts its own 0)
     if row3["launches"] != 0:

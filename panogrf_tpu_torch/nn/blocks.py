@@ -21,6 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from panogrf_tpu_torch.parallel.mesh import Mesh, pmean
+
 
 def _wrap_pad_nchw(x: torch.Tensor, pad_h: int, pad_w: int) -> torch.Tensor:
     if pad_h:
@@ -99,21 +101,58 @@ class BatchStatsMixin:
     towards them with momentum 0.9 (eps 1e-5).  Torch's own BatchNorm
     moves the running variance towards the unbiased batch variance, which
     differs by n / (n - 1).  ``train`` overrides the module's mode, as the
-    JAX modules' explicit ``train`` argument does."""
+    JAX modules' explicit ``train`` argument does.
+
+    With ``bn_axis`` set (:func:`set_bn_axis`, which also hands over the
+    mesh) training takes the JAX package's cross-replica statistics (its
+    ``BatchNorm(axis_name=...)``): the means of x and of x squared are
+    averaged over the axis's ranks, with their gradients, and the variance
+    is their difference ``mean(x^2) - mean(x)^2``."""
+
+    bn_axis: str | None = None
+    bn_mesh: Mesh | None = None
 
     def forward(self, x: torch.Tensor,
                 train: bool | None = None) -> torch.Tensor:
         if not (self.training if train is None else train):
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
+        dims = (0, *range(2, x.dim()))
+        if self.bn_axis is not None:
+            return self._synced(x, dims)
         with torch.no_grad():
-            dims = (0, *range(2, x.dim()))
             var, mean = torch.var_mean(x, dim=dims, unbiased=False)
+            self._track(mean, var)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True,
+                            0.0, self.eps)
+
+    def _track(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        with torch.no_grad():
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var, self.momentum)
             self.num_batches_tracked.add_(1)
-        return F.batch_norm(x, None, None, self.weight, self.bias, True,
-                            0.0, self.eps)
+
+    def _synced(self, x: torch.Tensor, dims: tuple) -> torch.Tensor:
+        mean, mean2 = pmean(torch.stack([x.mean(dims), (x * x).mean(dims)]),
+                            self.bn_mesh, self.bn_axis)
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        self._track(mean.detach(), var.detach())
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+
+
+def set_bn_axis(module: nn.Module, axis: str | None,
+                mesh: Mesh | None = None) -> nn.Module:
+    """Give every BatchNorm of ``module`` the cross-replica axis ``axis`` of
+    ``mesh`` (``axis`` None: the local batch), the role of the JAX modules'
+    ``bn_axis`` argument; returns ``module``."""
+    if axis is not None and mesh is None:
+        raise ValueError(f"bn_axis={axis!r} needs the mesh whose axis it is")
+    for m in module.modules():
+        if isinstance(m, BatchStatsMixin):
+            m.bn_axis, m.bn_mesh = axis, (mesh if axis is not None else None)
+    return module
 
 
 class BatchNorm3d(BatchStatsMixin, nn.BatchNorm3d):

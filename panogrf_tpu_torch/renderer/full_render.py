@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from panogrf_tpu_torch.nn.blocks import resize_linear
+from panogrf_tpu_torch.parallel.mesh import RAY_AXIS, Mesh, assemble
 from panogrf_tpu_torch.renderer.renderer import NeuralRayGenRenderer
 from panogrf_tpu_torch.utils.device import resolve_device
 
@@ -56,21 +57,37 @@ def _pixel_coords(xs, ys, n_chunks: int, chunk: int) -> torch.Tensor:
 def _render_poses(model: NeuralRayGenRenderer, ref_data: dict, c2w, qn: int,
                   que_depth_range, ref_depth_range, chunk: int,
                   coarse_lowres: int, coarse_chunk: int,
-                  dev: torch.device, diner: dict | None = None
-                  ) -> torch.Tensor:
+                  dev: torch.device, diner: dict | None = None,
+                  mesh: Mesh | None = None) -> torch.Tensor:
     """The chunk loop over ``qn`` poses at once: ``c2w`` (3, 4) for one
     frame or (qn, 3, 4); with ``diner`` (``render_rays_diner``'s counts)
     each chunk renders by depth-guided sampling; returns rgb
-    (qn, H, W, 3) in [0, 1]."""
+    (qn, H, W, 3) in [0, 1].  With a ``mesh`` this rank renders its
+    contiguous share of the rays (and of the low-res coarse rays) over
+    the mesh's ray axis, and the ranks assemble the low-res hit map and
+    the image."""
     h, w = model.height, model.width
     n = h * w
-    if n % chunk:
-        raise ValueError(f"chunk {chunk} does not divide {h}x{w} rays")
-    nc = n // chunk
+    shards, index = (1, 0) if mesh is None else (mesh.shape[RAY_AXIS],
+                                                 mesh.axis_index(RAY_AXIS))
+    if n % shards:
+        raise ValueError(f"{h}x{w} = {n} rays do not split over {shards} "
+                         "ranks")
+    if (n // shards) % chunk:
+        raise ValueError(f"chunk {chunk} does not divide {h}x{w} rays"
+                         + (f" over {shards} ranks" if shards > 1 else ""))
+    nc = n // shards // chunk
     coords = _pixel_coords(torch.arange(w, device=dev),
-                           torch.arange(h, device=dev), nc, chunk)
+                           torch.arange(h, device=dev), shards * nc,
+                           chunk)[index * nc:(index + 1) * nc]
     rgb = torch.empty(qn, nc, chunk, 3, device=dev)
     args = (c2w, _tensor(que_depth_range, dev), _tensor(ref_depth_range, dev))
+
+    def image() -> torch.Tensor:
+        out = rgb.reshape(qn, nc * chunk, 3)
+        if mesh is not None:
+            out = assemble(out, mesh, RAY_AXIS, dim=1)
+        return torch.clamp(out.reshape(qn, h, w, 3), 0.0, 1.0)
 
     if coarse_lowres == 1:
         for i in range(nc):
@@ -80,7 +97,7 @@ def _render_poses(model: NeuralRayGenRenderer, ref_data: dict, c2w, qn: int,
                                                             *args)
             rgb[:, i] = out["pixel_colors_nr_fine" if "pixel_colors_nr_fine"
                             in out else "pixel_colors_nr"]
-        return torch.clamp(rgb.reshape(qn, h, w, 3), 0.0, 1.0)
+        return image()
 
     f = coarse_lowres
     if diner is not None or model.light_coarse or \
@@ -91,23 +108,31 @@ def _render_poses(model: NeuralRayGenRenderer, ref_data: dict, c2w, qn: int,
         raise ValueError(f"coarse_lowres {f} does not divide {h}x{w}")
     lh, lw = h // f, w // f
     nlr = lh * lw
-    lchunk = min(coarse_chunk or chunk, nlr)
-    if nlr % lchunk:
-        raise ValueError(f"coarse chunk {lchunk} does not divide {nlr}")
+    if nlr % shards:
+        raise ValueError(f"the {lh}x{lw} low-res rays do not split over "
+                         f"{shards} ranks")
+    lchunk = min(coarse_chunk or chunk, nlr // shards)
+    if nlr // shards % lchunk:
+        raise ValueError(f"coarse chunk {lchunk} does not divide {nlr}"
+                         + (f" over {shards} ranks" if shards > 1 else ""))
+    lnc = nlr // shards // lchunk
     # the low-res rays sample the centre pixel of each f x f cell
     lcoords = _pixel_coords(torch.arange(lw, device=dev) * f + f // 2,
                             torch.arange(lh, device=dev) * f + f // 2,
-                            nlr // lchunk, lchunk)
+                            shards * lnc, lchunk)[index * lnc:
+                                                  (index + 1) * lnc]
     hit = torch.cat([model.coarse_hit_probs(
         ref_data, c.expand(qn, lchunk, 2), *args) for c in lcoords], 1)
+    if mesh is not None:
+        hit = assemble(hit, mesh, RAY_AXIS, dim=1)
     dn = hit.shape[-1]
     hit_full = resize_linear(hit.reshape(qn, lh, lw, dn), (h, w),
-                             axes=(1, 2)).reshape(qn, nc, chunk, dn)
+                             axes=(1, 2)).reshape(qn, shards * nc, chunk, dn)
     for i in range(nc):
         rgb[:, i] = model.render_fine_from_hit(
-            ref_data, coords[i].expand(qn, chunk, 2), hit_full[:, i],
-            *args)["pixel_colors_nr_fine"]
-    return torch.clamp(rgb.reshape(qn, h, w, 3), 0.0, 1.0)
+            ref_data, coords[i].expand(qn, chunk, 2),
+            hit_full[:, index * nc + i], *args)["pixel_colors_nr_fine"]
+    return image()
 
 
 @torch.inference_mode()

@@ -7,7 +7,9 @@ perspective (``depth2points_perspective``, cube faces).
 
 Stochastic sampling draws from an explicit ``torch.Generator`` on the CPU
 (``uniform``, ``normal``), so a run on the card and a run on the CPU with
-the same seed sample the same depths.
+the same seed sample the same depths.  N processes that each render a
+share of one batch's rays draw through a :class:`RayShard` of the same
+generator, and together draw what one process draws.
 """
 
 from __future__ import annotations
@@ -18,18 +20,38 @@ from panogrf_tpu_torch.core.sphere import SphereConvention
 from panogrf_tpu_torch.ops.resample import interpolate_feats_pointmajor
 
 
-def uniform(generator: torch.Generator, shape: tuple,
+class RayShard:
+    """The draws of share ``index`` of ``count`` equal contiguous shares of
+    a batch's rays (axis 1 of every draw): each draw takes the whole
+    batch's numbers from the CPU ``generator`` and keeps this share."""
+
+    def __init__(self, generator: torch.Generator, count: int, index: int):
+        self.generator, self.count, self.index = generator, count, index
+
+
+def _draw(sample, generator, shape: tuple, device) -> torch.Tensor:
+    """``sample(shape)`` from a CPU ``generator`` (or a :class:`RayShard`
+    of one), moved to ``device``."""
+    if not isinstance(generator, RayShard):
+        return sample(shape, generator=generator).to(device)
+    rn, n, i = shape[1], generator.count, generator.index
+    full = sample((shape[0], rn * n, *shape[2:]),
+                  generator=generator.generator)
+    return full[:, i * rn:(i + 1) * rn].to(device)
+
+
+def uniform(generator: torch.Generator | RayShard, shape: tuple,
             device=None) -> torch.Tensor:
     """U[0, 1) float32 draws of ``shape`` from the CPU ``generator``, moved
     to ``device``: every random number of the sampling comes from here."""
-    return torch.rand(shape, generator=generator).to(device)
+    return _draw(torch.rand, generator, shape, device)
 
 
-def normal(generator: torch.Generator, shape: tuple,
+def normal(generator: torch.Generator | RayShard, shape: tuple,
            device=None) -> torch.Tensor:
     """Standard-normal float32 draws of ``shape`` from the CPU
     ``generator``, moved to ``device`` (DINER's Gaussian samples)."""
-    return torch.randn(shape, generator=generator).to(device)
+    return _draw(torch.randn, generator, shape, device)
 
 
 def sample_depth(qn: int, rn: int, dn: int, near: float, far: float,

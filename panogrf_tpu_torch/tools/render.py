@@ -4,7 +4,7 @@
         [--height H --width W] [--pose-type eval|inter] [--inter-num K] \\
         [--frame-batch B] [--preset serving] [--chunk C] \\
         [--depth-stack | --mono-ckpt F [--mvs-ckpt F] [--wo-stereo]] \\
-        [--shards DIR] [--out DIR] [--device cpu]
+        [--shards DIR] [--out DIR] [--mesh N] [--device cpu]
 
 Port of the repo's ``tools/render.py``.  The scenes are procedural 3-view
 samples, or with ``--shards`` the first ``--num`` samples of a shard
@@ -28,8 +28,12 @@ checkpoint in the reference ``model.pth`` layout, which the port's
 trainer writes.
 
 It runs on the CUDA device and raises without one unless ``--device cpu``
-is given.  ``--mesh`` and ``--lpips-weights`` are not ported yet and are
-refused.
+is given.  ``--mesh N`` renders each eval frame with its rays split over N
+ranks, one process each (``parallel/launch.run_ranks``: NCCL on N cards,
+gloo on the CPU with ``--device cpu``), the preset's low-res coarse pass
+included (``parallel/sharded_render.py``); H*W must divide by N.  Pose
+paths render on rank 0 alone, and rank 0 writes every file.
+``--lpips-weights`` is not ported yet and is refused.
 """
 
 from __future__ import annotations
@@ -49,6 +53,9 @@ from panogrf_tpu_torch.data.synthetic import (SphereScene,
 from panogrf_tpu_torch.models.depth_stack import (load_depth_stack,
                                                   stack_depth_for_sample)
 from panogrf_tpu_torch.nn.blocks import resize_linear
+from panogrf_tpu_torch.parallel.launch import run_ranks
+from panogrf_tpu_torch.parallel.mesh import broadcast_object, make_mesh
+from panogrf_tpu_torch.parallel.sharded_render import render_image_sharded
 from panogrf_tpu_torch.renderer import full_render
 from panogrf_tpu_torch.renderer import poses as P
 from panogrf_tpu_torch.renderer.presets import (PRESET_CHUNK,
@@ -109,7 +116,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="render the first --num samples of this shard "
                          "directory instead of procedural scenes")
     ap.add_argument("--lpips-weights", default=None, help="not ported yet")
-    ap.add_argument("--mesh", type=int, default=0, help="not ported yet")
+    ap.add_argument("--mesh", type=int, default=0, metavar="N",
+                    help="split each eval frame's rays over N ranks (one "
+                         "card each; --device cpu: N CPU processes)")
     args = ap.parse_args(argv)
     if args.exact:
         args.preset = "exact"
@@ -125,22 +134,33 @@ def save_image(path: Path, img) -> None:
         np.save(path.with_suffix(".npy"), arr)
 
 
-def _refuse_unported(args) -> None:
-    unported = {"--mesh (multi-GPU rendering)": args.mesh,
-                "--lpips-weights (LPIPS)": args.lpips_weights}
-    for what, asked in unported.items():
-        if asked:
-            raise NotImplementedError(f"{what} is not ported to "
-                                      "panogrf_tpu_torch yet")
-
-
 def main(argv=None) -> dict:
     """Run the tool on ``argv``; returns a summary: per-frame metrics of
     'eval', their mean, per-scene path timings of 'inter', the depth
-    stack's nets and its seconds per scene."""
+    stack's nets and its seconds per scene (rank 0's with ``--mesh``)."""
     args = parse_args(argv)
-    _refuse_unported(args)
-    dev = resolve_device(args.device)
+    if args.lpips_weights:
+        raise NotImplementedError("--lpips-weights (LPIPS) is not ported "
+                                  "to panogrf_tpu_torch yet")
+    if args.mesh:
+        n = args.height * args.width
+        if n % args.mesh:
+            raise ValueError(f"{args.height}x{args.width} = {n} rays do not "
+                             f"split over {args.mesh} ranks")
+        return run_ranks(run_rank, args.mesh, args.device, (args,))
+    return run(args)
+
+
+def run_rank(args: argparse.Namespace) -> dict:
+    """One rank of ``--mesh``: ``run`` on the mesh of ``args.mesh``
+    ranks."""
+    return run(args, make_mesh(args.mesh, device=args.device))
+
+
+def run(args: argparse.Namespace, mesh=None) -> dict:
+    """The tool on parsed ``args``; with a ``mesh`` this rank's part."""
+    chief = mesh is None or mesh.rank == 0
+    dev = mesh.device if mesh is not None else resolve_device(args.device)
     H, W = args.height, args.width
     DH, DW = args.depth_height, args.depth_width
     kw = preset_kwargs(args.preset, gather_stride=args.gather_stride,
@@ -163,12 +183,14 @@ def main(argv=None) -> dict:
         print(f"coarse-lowres {clr} does not divide {H}x{W}; disabling")
         clr = 1
     chunk = args.chunk or PRESET_CHUNK[args.preset]
-    while (H * W) % chunk:
+    # with a mesh each rank's share of the rays is split into chunks
+    while (H * W // (mesh.size if mesh is not None else 1)) % chunk:
         chunk //= 2
     coarse_chunk = PRESET_COARSE_CHUNK[args.preset]
 
     out_dir = Path(args.out)
-    out_dir.mkdir(parents=True, exist_ok=True)
+    if chief:
+        out_dir.mkdir(parents=True, exist_ok=True)
 
     summary = {"frames": [], "videos": [], "stack_seconds": []}
     stack = None
@@ -191,9 +213,14 @@ def main(argv=None) -> dict:
     reader = ShardReader(args.shards) if args.shards else None
     num = min(args.num, len(reader)) if reader is not None else args.num
     for qi in range(num):
-        if not args.no_skip and args.pose_type == "eval" and \
-                (out_dir / f"{qi}-nr_fine.png").exists():
+        skip = not args.no_skip and args.pose_type == "eval" and \
+            (out_dir / f"{qi}-nr_fine.png").exists()
+        if mesh is not None:
+            skip = broadcast_object(skip, mesh)
+        if skip:
             print(f"[{qi}] exists, skipping")
+            continue
+        if args.pose_type == "inter" and not chief:
             continue
         if reader is not None:
             s = sample_to_torch(reader[qi], dev)
@@ -272,7 +299,14 @@ def main(argv=None) -> dict:
 
         synchronize(dev)
         t0 = time.perf_counter()
-        if clr > 1:
+        if mesh is not None:
+            ref_data = full_render.prepare_ref_data(model, ref_info,
+                                                    device=dev)
+            rgb = render_image_sharded(
+                model, ref_data, que_info["c2w"], qdr,
+                ref_info["depth_range"], mesh, coarse_lowres=clr,
+                chunk=chunk, coarse_chunk=coarse_chunk)
+        elif clr > 1:
             ref_data = full_render.prepare_ref_data(model, ref_info,
                                                     device=dev)
             rgb = full_render.render_image_device(
@@ -285,6 +319,8 @@ def main(argv=None) -> dict:
                 chunk=min(8192, H * W), device=dev)["rgb"]
         synchronize(dev)
         dt = time.perf_counter() - t0
+        if not chief:
+            continue
         gt = s["rgb_panos"][imgs_info.QUE_ID]
         m = {k: float(v) for k, v in M.render_metrics(rgb, gt).items()}
         m["sec_per_frame"] = dt
@@ -293,7 +329,7 @@ def main(argv=None) -> dict:
         save_image(out_dir / f"{qi}-gt.png", gt.cpu().numpy())
         print(f"[{qi}] " + " ".join(f"{k}={v:.3f}" for k, v in m.items()))
 
-    if summary["frames"]:
+    if summary["frames"] and chief:
         summary["mean"] = {k: float(np.mean([m[k] for m in summary["frames"]]))
                            for k in summary["frames"][0]}
         (out_dir / "metric.txt").write_text(json.dumps(summary["mean"],

@@ -3,7 +3,7 @@
     python -m panogrf_tpu_torch.tools.train_depth [--cfg <yaml>] \\
         [--steps N] [--height H --width W] [--views V] [--shards DIR] \\
         [--mono-ckpt F] [--mvs-uncertainty] [--new-reg3dnet] \\
-        [--model mvs|fnet] [--device cpu]
+        [--model mvs|fnet] [--mesh N] [--device cpu]
 
 Port of the repo's ``tools/train_depth.py``.  A recipe yaml (``--cfg``,
 e.g. ``configs/depth/m3d_mvs.yaml``) supplies height, width, views,
@@ -33,7 +33,12 @@ prior under ``d_net.*``.  The run resumes from the newest checkpoint of
 on the CUDA device and raises without one unless ``--device cpu`` is
 given.
 
-Not ported yet, and refused with an error: ``--mesh``.
+``--mesh N`` trains data-parallel on N ranks, one process each
+(``parallel/launch.run_ranks``: NCCL on N cards, gloo on the CPU with
+``--device cpu``), with cross-rank BatchNorm in the trained net: every
+rank draws the same batches, runs the frozen prior on them outside the
+step, and trains on its ``--batch`` / N samples, which must divide; rank
+0 prints, writes the checkpoints and sheets and evaluates.
 """
 
 from __future__ import annotations
@@ -56,7 +61,10 @@ from panogrf_tpu_torch.models.depth_stack import (extract_dnet,
 from panogrf_tpu_torch.models.fnet import FNetDepthModel
 from panogrf_tpu_torch.models.mvs import MVSDepthModel
 from panogrf_tpu_torch.models.unifuse import UniFuse, normalize_imagenet
-from panogrf_tpu_torch.nn.blocks import init_parameters_
+from panogrf_tpu_torch.nn.blocks import init_parameters_, set_bn_axis
+from panogrf_tpu_torch.parallel.launch import run_ranks
+from panogrf_tpu_torch.parallel.mesh import DATA_AXIS, make_mesh
+from panogrf_tpu_torch.parallel.programs import param_grads
 from panogrf_tpu_torch.train.depth_trainer import (DepthTrainConfig,
                                                    DepthTrainer)
 from panogrf_tpu_torch.utils.device import resolve_device
@@ -93,7 +101,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--new-reg3dnet", action="store_true",
                     help="MVSNet's CostRegNet regulariser in place of the "
                          "3D UNet")
-    ap.add_argument("--mesh", type=int, default=0, help="not ported yet")
+    ap.add_argument("--mesh", type=int, default=0, metavar="N",
+                    help="train data-parallel on N ranks (one card each; "
+                         "--device cpu: N CPU processes) with cross-rank "
+                         "BatchNorm; --batch must be a multiple of N")
     ap.add_argument("--vis-interval", type=int, default=100,
                     help="write rgb|gt|pred|error turbo sheets every N "
                          "steps (0 = off)")
@@ -121,12 +132,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
-def _refuse_unported(args) -> None:
-    if args.mesh:
-        raise NotImplementedError("--mesh (multi-GPU training) is not "
-                                  "ported to panogrf_tpu_torch yet")
-
-
 def view_order(views: int) -> list:
     """Index 1 is the reference, every other index a source: [0, 1] for
     2 views, [0, V-1, 1, ..., V-2] for V > 2."""
@@ -146,11 +151,12 @@ def load_mono(path: str | None, max_depth: float, device) -> UniFuse:
     return mono.requires_grad_(False).eval().to(device)
 
 
-def build(args: argparse.Namespace, log_fn=None) -> tuple:
+def build(args: argparse.Namespace, log_fn=None, mesh=None) -> tuple:
     """(trainer, batch iterator, number of steps) for ``args``; ``log_fn``
-    (step, metrics) is called beside the printed log."""
-    _refuse_unported(args)
-    dev = resolve_device(args.device)
+    (step, metrics) is called beside the printed log.  With a ``mesh``
+    (``parallel.mesh.Mesh``) the trainer trains data-parallel over it, on
+    this rank's device."""
+    dev = mesh.device if mesh is not None else resolve_device(args.device)
     H, W = args.height, args.width
     fnet = args.model == "fnet"
     mono = None if fnet else load_mono(args.mono_ckpt, args.max_depth, dev)
@@ -218,6 +224,8 @@ def build(args: argparse.Namespace, log_fn=None) -> tuple:
                               use_new_reg3dnet=args.new_reg3dnet)
     init_parameters_(model, torch.Generator().manual_seed(0))
     model.to(dev)
+    if mesh is not None:
+        set_bn_axis(model, DATA_AXIS, mesh)
 
     def forward_fn(batch: dict) -> dict:
         if fnet:
@@ -244,18 +252,58 @@ def build(args: argparse.Namespace, log_fn=None) -> tuple:
             log_fn(step, m)
 
     trainer = DepthTrainer(model, forward_fn, cfg, log_fn=log,
-                           frozen={} if fnet else {"d_net": mono})
+                           frozen={} if fnet else {"d_net": mono}, mesh=mesh)
     return trainer, batches(), args.steps
 
 
-def main(argv=None, log_fn=None) -> DepthTrainer:
-    """Run the CLI on ``argv``; returns the trained ``DepthTrainer``."""
-    trainer, stream, steps = build(parse_args(argv), log_fn)
+def run(args: argparse.Namespace, log_fn=None, mesh=None) -> DepthTrainer:
+    """Build, restore, train, save and evaluate (rank 0) as the CLI does."""
+    return train(*build(args, log_fn, mesh))
+
+
+def train(trainer: DepthTrainer, stream, steps: int) -> DepthTrainer:
+    """Restore, train, save and evaluate (rank 0) as the CLI does."""
     trainer.restore()
     trainer.fit(stream, steps)
     print(f"saved {trainer.save()}")
-    print("eval:", trainer.evaluate(stream, 2))
+    if trainer.is_chief:
+        print("eval:", trainer.evaluate(stream, 2))
     return trainer
+
+
+def run_rank(args: argparse.Namespace, log_fn=None) -> dict:
+    """``run`` on the mesh of ``args.mesh`` ranks (one rank of ``--mesh``),
+    or without a mesh when ``args.mesh`` is 0; returns the last step, its
+    checkpoint, the logged losses and the first step's clipped gradients
+    (with a mesh, the ranks' mean) as numpy."""
+    record = {"losses": [], "grads": None}
+
+    def log(step, metrics):
+        record["losses"].append(metrics["loss"])
+        if record["grads"] is None:
+            # ``trainer`` is bound below, before its first step
+            record["grads"] = param_grads(trainer.model)
+        if log_fn is not None:
+            log_fn(step, metrics)
+    mesh = make_mesh(args.mesh, data=args.mesh, device=args.device) \
+        if args.mesh else None
+    trainer, stream, steps = build(args, log, mesh)
+    train(trainer, stream, steps)
+    return {"step": trainer.step, **record, "checkpoint": str(
+        trainer.root / f"checkpoint_{trainer.step}.pth")}
+
+
+def main(argv=None, log_fn=None):
+    """Run the CLI on ``argv``; returns the trained ``DepthTrainer``, or
+    with ``--mesh`` rank 0's ``run_rank`` result (``log_fn`` must then be
+    picklable, unless N is 1)."""
+    args = parse_args(argv)
+    if args.mesh:
+        if args.batch % args.mesh:
+            raise SystemExit(f"--batch {args.batch} must be a multiple of "
+                             f"--mesh {args.mesh}")
+        return run_ranks(run_rank, args.mesh, args.device, (args, log_fn))
+    return run(args, log_fn)
 
 
 if __name__ == "__main__":

@@ -4,7 +4,8 @@
         --height 128 --width 256 [--shards DIR] \\
         [--loss l1_sphere|berhu|gaussian_nll] \\
         [--uncertainty] [--mono-net UniFuse|Equi|ERP+TP|Cube] \\
-        [--nrows 4 --patch-size 64] [--num-layers 2|18|34] [--device cpu]
+        [--nrows 4 --patch-size 64] [--num-layers 2|18|34] [--mesh N] \\
+        [--device cpu]
 
 Port of the repo's ``tools/train_mono.py``: each step draws ``--batch``
 procedural scenes from ``np.random.default_rng(2022)`` (per sample a
@@ -24,7 +25,11 @@ resumes from the newest checkpoint of ``<name>``, then prints the ERP
 depth metrics of 2 more batches.  It runs on the CUDA device and raises
 without one unless ``--device cpu`` is given.
 
-Not ported yet, and refused with an error: ``--mesh``.
+``--mesh N`` trains data-parallel on N ranks, one process each
+(``parallel/launch.run_ranks``: NCCL on N cards, gloo on the CPU with
+``--device cpu``), with cross-rank BatchNorm: every rank draws the same
+batches and trains on its ``--batch`` / N samples, which must divide;
+rank 0 prints, writes the checkpoints and sheets and evaluates.
 """
 
 from __future__ import annotations
@@ -39,7 +44,10 @@ from panogrf_tpu_torch.data.shards import ShardReader
 from panogrf_tpu_torch.data.synthetic import (SphereScene,
                                               make_three_view_sample)
 from panogrf_tpu_torch.models.unifuse import normalize_imagenet, select_mono
-from panogrf_tpu_torch.nn.blocks import init_parameters_
+from panogrf_tpu_torch.nn.blocks import init_parameters_, set_bn_axis
+from panogrf_tpu_torch.parallel.launch import run_ranks
+from panogrf_tpu_torch.parallel.mesh import DATA_AXIS, make_mesh
+from panogrf_tpu_torch.parallel.programs import param_grads
 from panogrf_tpu_torch.train.depth_trainer import (DepthTrainConfig,
                                                    DepthTrainer)
 from panogrf_tpu_torch.utils.device import resolve_device
@@ -70,7 +78,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="ERP+TP tangent-patch size in pixels")
     ap.add_argument("--num-layers", type=int, default=18,
                     help="encoder: 2 = MobileNetV2, 18/34 = ResNet")
-    ap.add_argument("--mesh", type=int, default=0, help="not ported yet")
+    ap.add_argument("--mesh", type=int, default=0, metavar="N",
+                    help="train data-parallel on N ranks (one card each; "
+                         "--device cpu: N CPU processes) with cross-rank "
+                         "BatchNorm; --batch must be a multiple of N")
     ap.add_argument("--vis-interval", type=int, default=100,
                     help="write rgb|gt|pred|error turbo sheets every N "
                          "steps (0 = off)")
@@ -81,17 +92,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def _refuse_unported(args) -> None:
-    if args.mesh:
-        raise NotImplementedError("--mesh (multi-GPU training) is not "
-                                  "ported to panogrf_tpu_torch yet")
-
-
-def build(args: argparse.Namespace, log_fn=None) -> tuple:
+def build(args: argparse.Namespace, log_fn=None, mesh=None) -> tuple:
     """(trainer, batch iterator, number of steps) for ``args``; ``log_fn``
-    (step, metrics) is called beside the printed log."""
-    _refuse_unported(args)
-    dev = resolve_device(args.device)
+    (step, metrics) is called beside the printed log.  With a ``mesh``
+    (``parallel.mesh.Mesh``) the trainer trains data-parallel over it, on
+    this rank's device."""
+    dev = mesh.device if mesh is not None else resolve_device(args.device)
     H, W = args.height, args.width
     loss = "gaussian_nll" if args.uncertainty else args.loss
     model = select_mono({"mono_net": args.mono_net,
@@ -102,6 +108,8 @@ def build(args: argparse.Namespace, log_fn=None) -> tuple:
                          "patchsize": args.patch_size})
     init_parameters_(model, torch.Generator().manual_seed(0))
     model.to(dev)
+    if mesh is not None:
+        set_bn_axis(model, DATA_AXIS, mesh)
     # UniFuse and the Cube ablation read the cubemap input
     with_cube = args.mono_net in ("UniFuse", "Cube")
     rng = np.random.default_rng(2022)
@@ -156,18 +164,58 @@ def build(args: argparse.Namespace, log_fn=None) -> tuple:
         if log_fn is not None:
             log_fn(step, m)
 
-    trainer = DepthTrainer(model, forward_fn, cfg, log_fn=log)
+    trainer = DepthTrainer(model, forward_fn, cfg, log_fn=log, mesh=mesh)
     return trainer, batches(), args.steps
 
 
-def main(argv=None, log_fn=None) -> DepthTrainer:
-    """Run the CLI on ``argv``; returns the trained ``DepthTrainer``."""
-    trainer, stream, steps = build(parse_args(argv), log_fn)
+def run(args: argparse.Namespace, log_fn=None, mesh=None) -> DepthTrainer:
+    """Build, restore, train, save and evaluate (rank 0) as the CLI does."""
+    return train(*build(args, log_fn, mesh))
+
+
+def train(trainer: DepthTrainer, stream, steps: int) -> DepthTrainer:
+    """Restore, train, save and evaluate (rank 0) as the CLI does."""
     trainer.restore()
     trainer.fit(stream, steps)
     print(f"saved {trainer.save()}")
-    print("eval:", trainer.evaluate(stream, 2))
+    if trainer.is_chief:
+        print("eval:", trainer.evaluate(stream, 2))
     return trainer
+
+
+def run_rank(args: argparse.Namespace, log_fn=None) -> dict:
+    """``run`` on the mesh of ``args.mesh`` ranks (one rank of ``--mesh``),
+    or without a mesh when ``args.mesh`` is 0; returns the last step, its
+    checkpoint, the logged losses and the first step's clipped gradients
+    (with a mesh, the ranks' mean) as numpy."""
+    record = {"losses": [], "grads": None}
+
+    def log(step, metrics):
+        record["losses"].append(metrics["loss"])
+        if record["grads"] is None:
+            # ``trainer`` is bound below, before its first step
+            record["grads"] = param_grads(trainer.model)
+        if log_fn is not None:
+            log_fn(step, metrics)
+    mesh = make_mesh(args.mesh, data=args.mesh, device=args.device) \
+        if args.mesh else None
+    trainer, stream, steps = build(args, log, mesh)
+    train(trainer, stream, steps)
+    return {"step": trainer.step, **record, "checkpoint": str(
+        trainer.root / f"checkpoint_{trainer.step}.pth")}
+
+
+def main(argv=None, log_fn=None):
+    """Run the CLI on ``argv``; returns the trained ``DepthTrainer``, or
+    with ``--mesh`` rank 0's ``run_rank`` result (``log_fn`` must then be
+    picklable, unless N is 1)."""
+    args = parse_args(argv)
+    if args.mesh:
+        if args.batch % args.mesh:
+            raise SystemExit(f"--batch {args.batch} must be a multiple of "
+                             f"--mesh {args.mesh}")
+        return run_ranks(run_rank, args.mesh, args.device, (args, log_fn))
+    return run(args, log_fn)
 
 
 if __name__ == "__main__":

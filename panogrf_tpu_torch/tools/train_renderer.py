@@ -4,7 +4,7 @@
         [--steps N] [--pool P | --shards DIR] [--mv V] \\
         [--count-jitter 64,64,48,32] \\
         [--depth-source gt|stack] [--mono-ckpt F] [--mvs-ckpt F] \\
-        [--wo-stereo] [--device cpu]
+        [--wo-stereo] [--mesh N] [--device cpu]
 
 Port of the repo's ``tools/train_renderer.py``.  It reads the repo's YAML
 configs (the default config without ``--cfg``), pre-renders a pool of
@@ -32,7 +32,13 @@ consistency loss: the query view's depth comes from the same source,
 paired with the first reference.  It runs on the CUDA device and raises
 without one unless ``--device cpu`` is given.
 
-Not ported yet, and refused with an error: ``--mesh``.
+``--mesh N`` splits each step's 512 rays over N ranks, one process each
+(``parallel/launch.run_ranks``: NCCL on N cards, gloo on the CPU with
+``--device cpu``): every rank builds the same pool (or reads the same
+shard samples) and draws the same rays and samples, renders its share of
+the rays, and the gradients are summed, so a step equals the
+single-device step up to rounding; rank 0 prints, validates and writes
+the checkpoints.
 """
 
 from __future__ import annotations
@@ -53,6 +59,9 @@ from panogrf_tpu_torch.data.synthetic import (SphereScene,
 from panogrf_tpu_torch.models.depth_stack import (load_depth_stack,
                                                   stack_depth_for_sample)
 from panogrf_tpu_torch.nn.blocks import resize_linear
+from panogrf_tpu_torch.parallel.launch import run_ranks
+from panogrf_tpu_torch.parallel.mesh import make_mesh
+from panogrf_tpu_torch.parallel.programs import param_grads
 from panogrf_tpu_torch.renderer import full_render
 from panogrf_tpu_torch.renderer.renderer import NeuralRayGenRenderer
 from panogrf_tpu_torch.train import metrics as M
@@ -94,25 +103,23 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--shards", default=None,
                     help="train on this shard directory's samples instead "
                          "of the procedural pool")
-    ap.add_argument("--mesh", type=int, default=0, help="not ported yet")
+    ap.add_argument("--mesh", type=int, default=0, metavar="N",
+                    help=f"split the {TRAIN_RAYS} rays of each step over N "
+                         "ranks (one card each; --device cpu: N CPU "
+                         "processes)")
     ap.add_argument("--mv", type=int, default=0, metavar="V",
                     help="multi-view training with V > 2 views: references "
                          "range(V - 1), query view V - 1")
     return ap.parse_args(argv)
 
 
-def _refuse_unported(args) -> None:
-    if args.mesh:
-        raise NotImplementedError("--mesh (multi-GPU training) is not "
-                                  "ported to panogrf_tpu_torch yet")
-
-
-def build(args: argparse.Namespace, log_fn=None) -> tuple:
+def build(args: argparse.Namespace, log_fn=None, mesh=None) -> tuple:
     """(trainer, batch iterator, number of steps) for ``args``; ``log_fn``
-    (step, metrics) is called beside the printed log."""
+    (step, metrics) is called beside the printed log.  With a ``mesh``
+    (``parallel.mesh.Mesh``) the trainer splits the rays over it, on this
+    rank's device."""
     cfg = load_config(args.cfg)
-    _refuse_unported(args)
-    dev = resolve_device(args.device)
+    dev = mesh.device if mesh is not None else resolve_device(args.device)
     num_steps = args.steps or cfg.train.total_step
     R = cfg.renderer
     H, W = R.height, R.width
@@ -282,17 +289,55 @@ def build(args: argparse.Namespace, log_fn=None) -> tuple:
             log_fn(step, m)
 
     trainer = Trainer(model, forward_fn, tc, val_fn=val_fn, log_fn=log,
-                      variant_probs=variant_probs)
+                      variant_probs=variant_probs, mesh=mesh)
     return trainer, batches(), num_steps
 
 
-def main(argv=None, log_fn=None) -> Trainer:
-    """Run the CLI on ``argv``; returns the trained ``Trainer``."""
-    args = parse_args(argv)
-    trainer, stream, num_steps = build(args, log_fn)
+def run(args: argparse.Namespace, log_fn=None, mesh=None) -> Trainer:
+    """Build, train and save as the CLI does."""
+    return train(*build(args, log_fn, mesh))
+
+
+def train(trainer: Trainer, stream, num_steps: int) -> Trainer:
+    """Train and save as the CLI does."""
     trainer.fit(stream, num_steps, key_metric="psnr_nr")
     print(f"saved {trainer.save('latest')}")
     return trainer
+
+
+def run_rank(args: argparse.Namespace, log_fn=None) -> dict:
+    """``run`` on the mesh of ``args.mesh`` ranks (one rank of ``--mesh``),
+    or without a mesh when ``args.mesh`` is 0; returns the last step, the
+    checkpoint, the logged losses and the first step's (clipped) gradients
+    of the whole batch as numpy."""
+    record = {"losses": [], "grads": None}
+
+    def log(step, metrics):
+        if "loss" in metrics:
+            record["losses"].append(metrics["loss"])
+            if record["grads"] is None:
+                # ``trainer`` is bound below, before its first step
+                record["grads"] = param_grads(trainer.model)
+        if log_fn is not None:
+            log_fn(step, metrics)
+    mesh = make_mesh(args.mesh, device=args.device) if args.mesh else None
+    trainer, stream, num_steps = build(args, log, mesh)
+    train(trainer, stream, num_steps)
+    return {"step": trainer.step, **record,
+            "checkpoint": str(trainer.ckpt_path())}
+
+
+def main(argv=None, log_fn=None):
+    """Run the CLI on ``argv``; returns the trained ``Trainer``, or with
+    ``--mesh`` rank 0's ``run_rank`` result (``log_fn`` must then be
+    picklable, unless N is 1)."""
+    args = parse_args(argv)
+    if args.mesh:
+        if TRAIN_RAYS % args.mesh:
+            raise SystemExit(f"--mesh {args.mesh} must divide the "
+                             f"{TRAIN_RAYS} rays of a step")
+        return run_ranks(run_rank, args.mesh, args.device, (args, log_fn))
+    return run(args, log_fn)
 
 
 if __name__ == "__main__":

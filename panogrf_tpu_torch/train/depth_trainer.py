@@ -23,8 +23,15 @@ frozen mono net as ``d_net.*``, as reference MVS checkpoints do, so
 ``models/depth_stack.load_depth_stack`` reads an MVS checkpoint alone.
 ``restore`` loads the newest checkpoint's weights into the trained net and
 takes the step from the file name; like the JAX trainer it does not
-restore the Adam moments.  Multi-device training (``mesh``) is not ported
-yet.
+restore the Adam moments.
+
+With a ``mesh`` (``parallel/mesh.py``) every rank runs the trainer on the
+same stream of batches: each step trains on the rank's share of the
+batch, the loss and the gradients averaged over the ranks (the net's
+BatchNorms take cross-rank statistics once given ``bn_axis`` and the mesh,
+``nn/blocks.set_bn_axis``); the parameters start from rank 0's, and only
+rank 0 logs and writes checkpoints and sheets; ``restore`` reads on rank
+0 and broadcasts.
 """
 
 from __future__ import annotations
@@ -41,6 +48,10 @@ from torch import nn
 from panogrf_tpu_torch.models.depth_stack import (load_reference_state,
                                                   read_checkpoint)
 from panogrf_tpu_torch.models.unifuse import IMAGENET_MEAN, IMAGENET_STD
+from panogrf_tpu_torch.parallel.mesh import (DATA_AXIS, Mesh,
+                                             broadcast_object,
+                                             place_depth_batch, pmean,
+                                             replicate_tree, sync_grads)
 from panogrf_tpu_torch.train import losses as L
 from panogrf_tpu_torch.train import metrics as M
 from panogrf_tpu_torch.train.trainer import ADAM_EPS
@@ -94,14 +105,14 @@ class DepthTrainer:
         ``rectified_depth_d1``; the trainer sets the net's mode first.
         ``batch["gt_depth"]`` (and optional ``gt_mask``) supervise.
     :param frozen: modules saved beside the net under their prefix.
+    :param mesh: optional ``parallel.mesh.Mesh``: train data-parallel over
+        its data axis (the batches ``fit`` takes are the whole batch).
     """
 
     def __init__(self, model: nn.Module, forward_fn: Callable,
                  cfg: DepthTrainConfig, log_fn: Optional[Callable] = None,
-                 mesh=None, frozen: Optional[Dict[str, nn.Module]] = None):
-        if mesh:
-            raise NotImplementedError("multi-device depth training (mesh) is"
-                                      " not ported to panogrf_tpu_torch yet")
+                 mesh: Optional[Mesh] = None,
+                 frozen: Optional[Dict[str, nn.Module]] = None):
         self.cfg = cfg
         self.model = model
         self.forward_fn = forward_fn
@@ -112,6 +123,10 @@ class DepthTrainer:
                                     eps=ADAM_EPS)
         self.step = 0
         self.root = Path(cfg.save_dir) / cfg.name
+        self.mesh = mesh
+        self.is_chief = mesh is None or mesh.rank == 0
+        if mesh is not None:
+            replicate_tree(mesh, model)
 
     def loss(self, out: dict, batch: dict) -> torch.Tensor:
         """The configured depth loss of a forward's outputs, plus the
@@ -126,14 +141,22 @@ class DepthTrainer:
         return loss
 
     def train_step(self, batch: dict) -> torch.Tensor:
-        """One update on ``batch``; returns the loss.  Afterwards each
+        """One update on ``batch`` (with a mesh, the whole batch, of which
+        this rank trains on its share); returns the loss.  Afterwards each
         parameter's ``.grad`` holds its clipped gradient."""
+        mesh = self.mesh
+        if mesh is not None:
+            batch = place_depth_batch(mesh, batch)
         self.model.train()
         self.opt.zero_grad(set_to_none=True)
         loss = self.loss(self.forward_fn(batch), batch)
         loss.backward()
+        loss = loss.detach()
+        if mesh is not None:
+            sync_grads(self.model.parameters(), mesh, DATA_AXIS, mean=True)
+            loss = pmean(loss, mesh, DATA_AXIS)
         self.update()
-        return loss.detach()
+        return loss
 
     def update(self) -> None:
         """Clip the parameters' ``.grad`` element-wise, then one Adam
@@ -156,8 +179,9 @@ class DepthTrainer:
             if self.step % self.cfg.log_interval == 0 or i == 0:
                 last = {"loss": float(loss),
                         "sec": round(time.time() - t0, 1)}
-                self.log_fn(self.step, last)
-            if self.cfg.vis_interval and \
+                if self.is_chief:
+                    self.log_fn(self.step, last)
+            if self.cfg.vis_interval and self.is_chief and \
                     self.step % self.cfg.vis_interval == 0:
                 self.dump_vis(batch)
             if self.step % self.cfg.checkpoint_interval == 0:
@@ -195,8 +219,12 @@ class DepthTrainer:
         return sd
 
     def save(self) -> Path:
-        self.root.mkdir(parents=True, exist_ok=True)
+        """Write the step's checkpoint (rank 0 alone with a mesh) and drop
+        the oldest beyond ``checkpoint_count``; returns its path."""
         path = self.root / f"checkpoint_{self.step}.pth"
+        if not self.is_chief:
+            return path
+        self.root.mkdir(parents=True, exist_ok=True)
         torch.save({"step": self.step, "model_state_dict": self.state_dict()},
                    path)
         for old in self.checkpoints()[:-self.cfg.checkpoint_count]:
@@ -208,11 +236,17 @@ class DepthTrainer:
         return sorted(self.root.glob("checkpoint_*.pth"), key=_step_of)
 
     def restore(self) -> bool:
-        cks = self.checkpoints()
-        if not cks:
+        newest = None
+        if self.is_chief:
+            cks = self.checkpoints()
+            if cks:
+                newest = (_step_of(cks[-1]), read_checkpoint(cks[-1]))
+        if self.mesh is not None:
+            newest = broadcast_object(newest, self.mesh)
+        if newest is None:
             return False
-        load_reference_state(self.model, read_checkpoint(cks[-1]))
-        self.step = _step_of(cks[-1])
+        self.step, state = newest
+        load_reference_state(self.model, state)
         return True
 
     def evaluate(self, batches: Iterable, max_batches: int = 8) -> dict:

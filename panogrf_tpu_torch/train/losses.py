@@ -3,7 +3,11 @@
 Port of ``panogrf_tpu/train/losses.py``.  Renderer losses are functions
 (data_pr, data_gt, step) -> dict of per-sample losses, and the trainer
 sums the mean of every ``*loss*`` entry (``NAME2LOSS``, ``total_loss``;
-``depth_ft`` is the finetuning stage's, from ``ft_losses``).
+``depth_ft`` is the finetuning stage's, from ``ft_losses``).  When N
+processes each hold a share of a batch's rays, ``render``, ``depth`` and
+``consistency`` take ``ray_sum``, which sums a tensor over the N: their
+means over rays then divide by every process's count, so each process's
+terms are its share and the shares sum to the terms of the whole batch.
 The depth-network losses (``l1_sphere_loss``, ``berhu_loss``,
 ``gaussian_nll_loss``, ``laplacian_nll_loss``) take channel-last
 (B, H, W, 1) maps and return a scalar.
@@ -20,9 +24,26 @@ from panogrf_tpu_torch.ops.resample import interpolate_feats
 from panogrf_tpu_torch.train.ft_losses import depth_ft_loss
 
 
+def _ray_total(x: torch.Tensor, ray_sum: Callable | None) -> torch.Tensor:
+    """A per-process reduction over rays, summed over the processes that
+    share the batch's rays (``ray_sum``; None: this process holds them
+    all)."""
+    return x if ray_sum is None else ray_sum(x)
+
+
+def _ray_mean(x: torch.Tensor, dim: int,
+              ray_sum: Callable | None) -> torch.Tensor:
+    """``torch.mean(x, dim)`` over the rays of ``dim``; with ``ray_sum``,
+    this process's sum over the count of every process's rays."""
+    if ray_sum is None:
+        return torch.mean(x, dim)
+    return torch.sum(x, dim) / ray_sum(x.new_tensor(float(x.shape[dim])))
+
+
 def _masked_rgb_loss(rgb_pr: torch.Tensor, rgb_gt: torch.Tensor,
                      ray_mask: torch.Tensor | None,
-                     polar_weights: torch.Tensor | None) -> torch.Tensor:
+                     polar_weights: torch.Tensor | None,
+                     ray_sum: Callable | None) -> torch.Tensor:
     loss = torch.sum((rgb_pr - rgb_gt) ** 2, -1)             # (qn, rn)
     if polar_weights is not None:
         w = polar_weights[..., 0] if polar_weights.dim() == 3 \
@@ -30,26 +51,30 @@ def _masked_rgb_loss(rgb_pr: torch.Tensor, rgb_gt: torch.Tensor,
         loss = loss * w
         if ray_mask is not None:
             m = ray_mask.to(loss.dtype)
-            return torch.sum(loss * m, 1) / (torch.sum(m * w, 1) + 1e-7)
-        return torch.sum(loss, 1) / (torch.sum(w, 1) + 1e-7)
+            return torch.sum(loss * m, 1) / (
+                _ray_total(torch.sum(m * w, 1), ray_sum) + 1e-7)
+        return torch.sum(loss, 1) / (_ray_total(torch.sum(w, 1), ray_sum)
+                                     + 1e-7)
     if ray_mask is not None:
         m = ray_mask.to(loss.dtype)
-        return torch.sum(loss * m, 1) / (torch.sum(m, 1) + 1e-7)
-    return torch.mean(loss, 1)
+        return torch.sum(loss * m, 1) / (_ray_total(torch.sum(m, 1), ray_sum)
+                                         + 1e-7)
+    return _ray_mean(loss, 1, ray_sum)
 
 
 def render_loss(data_pr: dict, data_gt: dict, step: int = 0, *,
                 use_ray_mask: bool = True, use_nr_fine_loss: bool = True,
-                use_polar_weighted_loss: bool = False) -> dict:
+                use_polar_weighted_loss: bool = False,
+                ray_sum: Callable | None = None) -> dict:
     """Coarse + fine masked MSE of the rendered colours."""
     rgb_gt = data_pr["pixel_colors_gt"]
     mask = data_pr.get("ray_mask") if use_ray_mask else None
     pw = data_pr.get("polar_weights") if use_polar_weighted_loss else None
     out = {"loss_rgb_nr": _masked_rgb_loss(
-        data_pr["pixel_colors_nr"], rgb_gt, mask, pw)}
+        data_pr["pixel_colors_nr"], rgb_gt, mask, pw, ray_sum)}
     if use_nr_fine_loss and "pixel_colors_nr_fine" in data_pr:
         out["loss_rgb_nr_fine"] = _masked_rgb_loss(
-            data_pr["pixel_colors_nr_fine"], rgb_gt, mask, pw)
+            data_pr["pixel_colors_nr_fine"], rgb_gt, mask, pw, ray_sum)
     return out
 
 
@@ -63,7 +88,8 @@ def normalize_inv_depth(depth: torch.Tensor,
 
 
 def depth_loss(data_pr: dict, data_gt: dict, step: int = 0, *,
-               loss_type: str = "l2", smooth_l1_beta: float = 0.05) -> dict:
+               loss_type: str = "l2", smooth_l1_beta: float = 0.05,
+               ray_sum: Callable | None = None) -> dict:
     """Supervise the decoder's expected depth with the reference views'
     true depth (``ref_imgs_info.true_depth``) at ``depth_coords``."""
     if "depth_mean" not in data_pr:
@@ -84,7 +110,7 @@ def depth_loss(data_pr: dict, data_gt: dict, step: int = 0, *,
             per = torch.where(diff < smooth_l1_beta,
                               0.5 * diff ** 2 / smooth_l1_beta,
                               diff - 0.5 * smooth_l1_beta)
-        return torch.mean(per, 1)
+        return _ray_mean(per, 1, ray_sum)
 
     out = {"loss_depth": one(data_pr["depth_mean"])}
     if "depth_mean_fine" in data_pr:
@@ -92,7 +118,8 @@ def depth_loss(data_pr: dict, data_gt: dict, step: int = 0, *,
     return out
 
 
-def consistency_loss(data_pr: dict, data_gt: dict, step: int = 0) -> dict:
+def consistency_loss(data_pr: dict, data_gt: dict, step: int = 0, *,
+                     ray_sum: Callable | None = None) -> dict:
     """Cross entropy between the rendered and the self-predicted hit
     probability (the rendered one is the target)."""
     if "hit_prob_self" not in data_pr:
@@ -101,7 +128,7 @@ def consistency_loss(data_pr: dict, data_gt: dict, step: int = 0) -> dict:
     def ce(p0, p1):
         p0 = p0.detach()
         v = -p0 * torch.log(p1 + 1e-5) - (1 - p0) * torch.log(1 - p1 + 1e-5)
-        return torch.mean(torch.mean(v, -1), 1)
+        return _ray_mean(torch.mean(v, -1), 1, ray_sum)
     out = {"loss_prob": ce(data_pr["hit_prob_nr"], data_pr["hit_prob_self"])}
     if "hit_prob_nr_fine" in data_pr and "hit_prob_self_fine" in data_pr:
         out["loss_prob_fine"] = ce(data_pr["hit_prob_nr_fine"],

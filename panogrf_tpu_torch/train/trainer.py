@@ -18,6 +18,12 @@ What follows the JAX package (optax):
 
 The step's randomness comes from one CPU ``torch.Generator`` seeded with
 ``cfg.seed``, so a run on the card and a run on the CPU draw the same.
+
+With a ``mesh`` (``parallel/mesh.py``) every rank runs the trainer on the
+same stream of batches and the same generator, and each step renders the
+rank's share of the rays (``make_train_step``); the parameters start from
+rank 0's, and only rank 0 logs, validates and writes checkpoints;
+``restore`` reads on rank 0 and broadcasts.
 """
 
 from __future__ import annotations
@@ -30,6 +36,11 @@ import numpy as np
 import torch
 from torch import nn
 
+from panogrf_tpu_torch.parallel.mesh import (RAY_AXIS, Mesh,
+                                             broadcast_object, psum,
+                                             replicate_tree, shard_ray_batch,
+                                             sync_grads)
+from panogrf_tpu_torch.renderer.render_ops import RayShard
 from panogrf_tpu_torch.train.losses import NAME2LOSS, total_loss
 from panogrf_tpu_torch.train.lr import NAME2LR
 
@@ -84,10 +95,13 @@ def apply_update(opt: torch.optim.Optimizer, schedule: Callable, count: int,
     opt.step()
 
 
-def make_loss_fn(cfg: TrainerConfig) -> Callable:
+def make_loss_fn(cfg: TrainerConfig,
+                 ray_sum: Optional[Callable] = None) -> Callable:
     """(outputs, batch) -> (total loss, dict of loss terms), summing every
-    ``*loss*`` term of the configured losses."""
-    loss_fns = [(NAME2LOSS[n], cfg.loss_kwargs.get(n, {}))
+    ``*loss*`` term of the configured losses; ``ray_sum`` goes to each
+    loss when the batch's rays are split over processes."""
+    extra = {} if ray_sum is None else {"ray_sum": ray_sum}
+    loss_fns = [(NAME2LOSS[n], {**cfg.loss_kwargs.get(n, {}), **extra})
                 for n in cfg.losses]
 
     def loss_fn(outputs: dict, batch: dict) -> tuple:
@@ -99,26 +113,41 @@ def make_loss_fn(cfg: TrainerConfig) -> Callable:
 
 
 def make_train_step(forward_fn: Callable, cfg: TrainerConfig,
-                    opt: torch.optim.Optimizer, schedule: Callable
-                    ) -> Callable:
+                    opt: torch.optim.Optimizer, schedule: Callable,
+                    mesh: Optional[Mesh] = None) -> Callable:
     """Build ``step(batch, generator, count) -> metrics``: forward, losses,
     backward, optional clipping, then one Adam update at the schedule's
     lr for update ``count``.  After it, each parameter's ``.grad`` holds
     the (clipped) gradient of that step.
 
     ``forward_fn(batch, generator)`` returns the renderer's output dict.
+    With a ``mesh`` each rank takes the whole ``batch`` and renders its
+    share of the rays over the mesh's ray axis (``shard_ray_batch``; its
+    draws through a ``render_ops.RayShard``); its losses are its share of
+    the whole batch's (``ray_sum``), and the gradients and the metrics are
+    summed over the ranks, so the step is the whole batch's on every rank.
     """
-    loss_fn = make_loss_fn(cfg)
+    ray_sum = None if mesh is None else (lambda x: psum(x, mesh, RAY_AXIS))
+    loss_fn = make_loss_fn(cfg, ray_sum)
+    params = [p for g in opt.param_groups for p in g["params"]]
 
     def train_step(batch: dict, generator: torch.Generator,
                    count: int) -> dict:
+        if mesh is not None:
+            batch = shard_ray_batch(mesh, batch)
+            generator = RayShard(generator, mesh.shape[RAY_AXIS],
+                                 mesh.axis_index(RAY_AXIS))
         opt.zero_grad(set_to_none=True)
         loss, terms = loss_fn(forward_fn(batch, generator), batch)
         loss.backward()
+        if mesh is not None:
+            sync_grads(params, mesh, RAY_AXIS, mean=False)
         apply_update(opt, schedule, count, cfg.grad_clip)
-        metrics = {"loss": loss.detach()}
-        metrics.update({k: torch.mean(v).detach() for k, v in terms.items()})
-        return metrics
+        values = torch.stack([loss.detach()] + [
+            torch.mean(v).detach().to(loss) for v in terms.values()])
+        if mesh is not None:
+            values = psum(values, mesh, RAY_AXIS)
+        return dict(zip(["loss", *terms], values))
 
     return train_step
 
@@ -132,21 +161,28 @@ class Trainer:
         parameters (count-jitter: one variant drawn per step, weighted by
         ``variant_probs``, uniform by default).
     :param val_fn: optional (model, step) -> dict of scalar metrics.
+    :param mesh: optional ``parallel.mesh.Mesh``: split each step's rays
+        over its ray axis (the batches ``fit`` takes are the whole batch).
     """
 
     def __init__(self, model: nn.Module, forward_fn, cfg: TrainerConfig,
                  val_fn: Optional[Callable] = None,
                  log_fn: Optional[Callable] = None,
-                 variant_probs: Optional[Dict[str, float]] = None):
+                 variant_probs: Optional[Dict[str, float]] = None,
+                 mesh=None):
         self.cfg = cfg
         self.model = model
         self.val_fn = val_fn
         self.log_fn = log_fn or (lambda step, m: None)
+        self.mesh = mesh
+        self.is_chief = mesh is None or mesh.rank == 0
+        if mesh is not None:
+            replicate_tree(mesh, model)
         self.opt, self.schedule = make_optimizer(cfg, model.parameters())
         self.step = 0
         if isinstance(forward_fn, dict):
             self.train_steps = {k: make_train_step(fn, cfg, self.opt,
-                                                   self.schedule)
+                                                   self.schedule, mesh)
                                 for k, fn in forward_fn.items()}
             if variant_probs is not None and \
                     set(variant_probs) != set(forward_fn):
@@ -154,8 +190,8 @@ class Trainer:
                                  f"!= variants {sorted(forward_fn)}")
         else:
             self.train_steps = {None: make_train_step(forward_fn, cfg,
-                                                      self.opt,
-                                                      self.schedule)}
+                                                      self.opt, self.schedule,
+                                                      mesh)}
         self.variant_probs = variant_probs
         self.best_metric = -float("inf")
         self._ckpt_dir = Path(cfg.save_dir) / cfg.name
@@ -166,7 +202,11 @@ class Trainer:
         return self._ckpt_dir / tag / "model.pth"
 
     def save(self, tag: str = "latest") -> Path:
+        """Write the checkpoint ``tag`` (rank 0 alone with a mesh); returns
+        its path."""
         path = self.ckpt_path(tag)
+        if not self.is_chief:
+            return path
         path.parent.mkdir(parents=True, exist_ok=True)
         torch.save({"step": self.step, "best_para": self.best_metric,
                     "network_state_dict": self.model.state_dict(),
@@ -175,9 +215,13 @@ class Trainer:
 
     def restore(self, tag: str = "latest") -> None:
         path = self.ckpt_path(tag)
-        if not path.exists():
+        ckpt = None
+        if self.is_chief and path.exists():
+            ckpt = torch.load(path, map_location="cpu", weights_only=False)
+        if self.mesh is not None:
+            ckpt = broadcast_object(ckpt, self.mesh)
+        if ckpt is None:
             raise FileNotFoundError(f"no checkpoint at {path}")
-        ckpt = torch.load(path, map_location="cpu", weights_only=False)
         self.model.load_state_dict(ckpt["network_state_dict"])
         self.opt.load_state_dict(ckpt["optimizer_state_dict"])
         self.step = int(ckpt["step"])
@@ -214,8 +258,10 @@ class Trainer:
             step = self.step
             if step % self.cfg.log_interval == 0 or i == 0:
                 last_metrics = {k: float(v) for k, v in metrics.items()}
-                self.log_fn(step, last_metrics)
-            if self.val_fn and step % self.cfg.val_interval == 0:
+                if self.is_chief:
+                    self.log_fn(step, last_metrics)
+            if self.val_fn and self.is_chief and \
+                    step % self.cfg.val_interval == 0:
                 vm = self.val_fn(self.model, step)
                 self.log_fn(step, vm)
                 if vm.get(key_metric, -float("inf")) > self.best_metric:

@@ -64,6 +64,7 @@ from panogrf_tpu_torch.nn import blocks as tblocks
 from panogrf_tpu_torch.nn import resnet as tresnet
 from panogrf_tpu_torch.ops import cost_volume as tcv_ops
 from panogrf_tpu_torch.ops import resample as tres
+from panogrf_tpu_torch.parallel.mesh import make_mesh
 from panogrf_tpu_torch.tools import eval_depth, train_depth, train_mono
 from panogrf_tpu_torch.train import depth_trainer as tdt
 from panogrf_tpu_torch.train import losses as tl
@@ -648,8 +649,11 @@ def test_trainer_rolls_checkpoints_and_resumes(tmp_path):
     assert set(m) == {"mae", "rmse", "abs_rel", "delta1", "delta2",
                       "delta3"}
     assert all(np.isfinite(v) for v in m.values())
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tdt.DepthTrainer(a.model, a.forward_fn, a.cfg, mesh=2)
+    # a world-1 mesh trains on its rank as the plain trainer does
+    c = tdt.DepthTrainer(a.model, a.forward_fn, a.cfg,
+                         mesh=make_mesh(1, device="cpu"))
+    assert c.is_chief and torch.isfinite(c.train_step(
+        next(_tiny_batches(3))))
 
 
 # ---------------------------------------------------------------------------
@@ -798,12 +802,15 @@ def test_cli_train_depth_reads_its_recipe(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("tool,argv", [
-    ("train_mono", ["--mesh", "2"]), ("train_depth", ["--mesh", "2"])])
+    ("train_mono", ["--mesh", "2", "--batch", "3"]),
+    ("train_depth", ["--mesh", "2", "--batch", "3"])])
 def test_cli_refuses_what_is_not_ported(tool, argv, tmp_path, monkeypatch):
+    """``--mesh`` is ported (``tests/test_torch_port_parallel.py``); a batch
+    it does not divide is refused with the JAX tools' error."""
     monkeypatch.chdir(tmp_path)
     mod = {"train_mono": train_mono, "train_depth": train_depth}[tool]
-    with pytest.raises(NotImplementedError, match="not ported"):
-        mod.build(mod.parse_args([*argv, *CLI_HW, "--device", "cpu"]))
+    with pytest.raises(SystemExit, match="multiple of --mesh"):
+        mod.main([*argv, *CLI_HW, "--device", "cpu"])
 
 
 @pytest.fixture(scope="module")

@@ -51,7 +51,8 @@ def test_no_source_file_mentions_jax():
     assert len(_modules()) >= 69
     # the depth stack's, the video slice's, depth training's, the
     # multi-view and finetuning slice's, the renderer modes', the
-    # depth-net variants' and the data pipeline's modules are among them
+    # depth-net variants', the data pipeline's and the multi-GPU modules
+    # are among them
     assert {f"panogrf_tpu_torch.{m}" for m in (
         "core.cubemap", "nn.resnet", "nn.fusion", "models.unifuse",
         "models.mvs", "models.depth_stack", "ops.cost_volume",
@@ -65,7 +66,9 @@ def test_no_source_file_mentions_jax():
         "nn.erp_tp", "models.fnet", "models.uncert", "data.shards",
         "data.lmdb_reader", "data.lmdb_import", "data.readers",
         "data.augment", "data.online", "tools.prepare_data",
-        "tools.import_lmdb")} <= \
+        "tools.import_lmdb", "parallel.mesh", "parallel.launch",
+        "parallel.sharded_train", "parallel.sharded_render",
+        "parallel.programs")} <= \
         set(_modules())
     assert not offenders, offenders
 

@@ -500,8 +500,9 @@ def test_cli_trains_and_its_checkpoint_loads_in_jax(tmp_path, monkeypatch):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
+    """``--mesh`` is ported (``tests/test_torch_port_parallel.py``); a mesh
+    that does not divide a step's rays is refused."""
     cfg = str(REPO / "configs/gen_synthetic_small.yaml")
-    for extra in (["--mesh", "4"],):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tcli.build(tcli.parse_args(["--cfg", cfg, "--device", "cpu",
-                                        *extra]))
+    for extra in (["--mesh", "3"],):
+        with pytest.raises(SystemExit, match="must divide the 512 rays"):
+            tcli.main(["--cfg", cfg, "--device", "cpu", *extra])

@@ -302,8 +302,12 @@ def test_render_cli_on_shards_matches_jax(scene, tmp_path):
 
 
 def test_render_cli_refuses_what_is_not_ported(tmp_path):
-    for extra in (["--mesh", "2"], ["--lpips-weights", "w.npz"]):
-        with pytest.raises(NotImplementedError, match="not ported"):
+    """LPIPS is not ported; ``--mesh`` is (``tests/test_torch_port_
+    parallel.py``), and refuses ranks that do not split the rays."""
+    for extra, error, match in (
+            (["--lpips-weights", "w.npz"], NotImplementedError, "not ported"),
+            (["--mesh", "3"], ValueError, "do not split over 3 ranks")):
+        with pytest.raises(error, match=match):
             trender.main(["--device", "cpu", "--out", str(tmp_path), *extra])
 
 
