@@ -63,7 +63,18 @@ the wrapper's host cost, then drives the port's two paths at full width
   the sharded depth step, the sharded renderer step and the sharded
   serving frame of ``panogrf_tpu_torch/parallel/programs.py`` on 2 ranks
   sharing the card (gloo, CUDA tensors) against 1 rank, with ms/step and
-  ms/frame per world size and the ``mlp2`` launches per rank.
+  ms/frame per world size and the ``mlp2`` launches per rank;
+* the measurement and evaluation tools: ``tools.bench`` at 512x1024 (4096-
+  ray chunks with the stage roofline, a B = 2 video pass, the depth
+  stack, the ``agg`` / ``gather`` / ``attn`` ablations, DINER, and its
+  default run: serving at 256-ray chunks and turbo), the merged-map row
+  fetch's ns per row in depth-major and scattered order at two chunks
+  (why the roofline has no ``GATHER_NS_PER_ROW``), ``tools.bench_train``
+  on both recipes, LPIPS at
+  512x1024 and on the card against the CPU at 64x128,
+  ``tools.parity_check`` on the training groups' files (the composed
+  exact render, with LPIPS) and ``tools.eval_dirs`` on the render CLI's
+  eval frame.
 
 Each path checks that it went through its kernels.  Each phase prints one
 JSON line; any failure raises, so the process exits non-zero.  The last
@@ -117,12 +128,15 @@ from panogrf_tpu_torch.renderer.ft_renderer import (NeuralRayFtRenderer,
                                                     ft_depth_range_at_coords,
                                                     init_ft_params_from_gen)
 from panogrf_tpu_torch.renderer.renderer import NeuralRayGenRenderer
+from panogrf_tpu_torch.tools import (bench, bench_train, eval_dirs,
+                                     parity_check)
 from panogrf_tpu_torch.tools import eval_depth, train_depth, train_mono
 from panogrf_tpu_torch.tools import render as render_tool
 from panogrf_tpu_torch.tools import (ab_quality, import_lmdb, prepare_data,
                                      render_cubes, render_ft, render_mv,
                                      train_ft, train_renderer)
 from panogrf_tpu_torch.train import depth_trainer
+from panogrf_tpu_torch.train import lpips as tlpips
 from panogrf_tpu_torch.train import trainer as trainer_mod
 
 H, W, DH, DW, RFN = 512, 1024, 256, 512, 2
@@ -505,20 +519,6 @@ def assert_specialised(what: str, mlp2_launches: int, variants: dict) -> None:
 # the serving render
 # ---------------------------------------------------------------------------
 
-def bench_inputs(h, w, dh, dw):
-    """The inputs bench.py renders (same seed and construction)."""
-    rng = np.random.default_rng(0)
-    w2c = np.tile(np.concatenate([np.eye(3), np.zeros((3, 1))], 1),
-                  (RFN, 1, 1))
-    w2c[1, 2, 3] = 1.0
-    ref_info = {"imgs": rng.uniform(size=(RFN, h, w, 3)),
-                "mvs_depth": rng.uniform(1.0, 6.0, size=(RFN, dh, dw, 1)),
-                "depth_range": np.asarray([[0.5, 15.0]] * RFN),
-                "w2c": w2c}
-    c2w = np.concatenate([np.eye(3), [[0.0], [0.0], [0.5]]], 1)
-    return ref_info, c2w, np.asarray([[0.5, 15.0]])
-
-
 def frame_run(phase: str, run: str, frame, expected: int, meta: dict,
               like: torch.Tensor | None = None) -> tuple:
     """One frame ``frame()`` counted (its mlp2 launches must equal
@@ -575,7 +575,7 @@ def render_full_width() -> tuple:
     model = NeuralRayGenRenderer(
         height=H, width=W, depth_hw=(DH, DW), **preset_kwargs("serving"),
         device="cuda", generator=torch.Generator().manual_seed(0))
-    ref_info, c2w, qdr = bench_inputs(H, W, DH, DW)
+    ref_info, c2w, qdr = bench.bench_inputs(H, W, DH, DW)
     t0 = time.perf_counter()
     ref = full_render.prepare_ref_data(model, ref_info)
     torch.cuda.synchronize()
@@ -674,7 +674,7 @@ def cuda_vs_cpu() -> None:
     the card, through the kernels, and on the CPU, through the plain
     versions; rgb agrees within 2e-3."""
     h, w, dh, dw = 64, 128, 32, 64
-    ref_info, c2w, qdr = bench_inputs(h, w, dh, dw)
+    ref_info, c2w, qdr = bench.bench_inputs(h, w, dh, dw)
     rgbs, launches = {}, 0
     for device in ("cuda", "cpu"):
         model = NeuralRayGenRenderer(
@@ -1415,7 +1415,7 @@ def video_cuda() -> None:
     batched products may round differently); the 3-pose group launches
     mlp2 as often as one frame."""
     h, w, dh, dw = 64, 128, 32, 64
-    ref_info, c2w, qdr = bench_inputs(h, w, dh, dw)
+    ref_info, c2w, qdr = bench.bench_inputs(h, w, dh, dw)
     model = NeuralRayGenRenderer(
         height=h, width=w, depth_hw=(dh, dw),
         **preset_kwargs("serving", compute_dtype="float32"), device="cuda",
@@ -1726,7 +1726,7 @@ def mode_frames() -> dict:
     pass merged, and a light-coarse frame (serving flags).  One mlp2
     launch per chunk pass: 128, 256 and 128 a frame.  Then a profile of
     DINER chunks.  Returns {run: mlp2 launches}."""
-    ref_info, c2w, qdr = bench_inputs(H, W, DH, DW)
+    ref_info, c2w, qdr = bench.bench_inputs(H, W, DH, DW)
     dr = ref_info["depth_range"]
     n_chunks = H * W // MODES_CHUNK
     diner = NeuralRayGenRenderer(
@@ -1907,7 +1907,7 @@ def modes_cuda_vs_cpu() -> None:
     unflagged pixels over the limit are reported too.  Then one DINER
     training step (``diner_step_cuda_vs_cpu``)."""
     h, w, dh, dw = 64, 128, 32, 64
-    ref_info, c2w, qdr = bench_inputs(h, w, dh, dw)
+    ref_info, c2w, qdr = bench.bench_inputs(h, w, dh, dw)
     dr = ref_info["depth_range"]
     serving = preset_kwargs("serving", compute_dtype="float32")
     fw = h // 2
@@ -2136,7 +2136,7 @@ def erp_tp_frame() -> int:
         height=H, width=W, depth_hw=(DH, DW), **preset_kwargs("serving"),
         **ERP_TP_FLAGS, device="cuda",
         generator=torch.Generator().manual_seed(0))
-    ref_info, c2w, qdr = bench_inputs(H, W, DH, DW)
+    ref_info, c2w, qdr = bench.bench_inputs(H, W, DH, DW)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ref = full_render.prepare_ref_data(model, ref_info)
@@ -2237,7 +2237,7 @@ def variant_cuda_vs_cpu() -> None:
         compare_steps("variant_cuda_vs_cpu", {"variant": variant}, cu, cp,
                       cp64)
     h, w, dh, dw = 64, 128, 32, 64
-    ref_info, c2w, qdr = bench_inputs(h, w, dh, dw)
+    ref_info, c2w, qdr = bench.bench_inputs(h, w, dh, dw)
     rgbs = {}
     for device in ("cuda", "cpu"):
         model = NeuralRayGenRenderer(
@@ -2684,8 +2684,8 @@ def read_frame(png: Path) -> np.ndarray:
     """A frame the render CLI wrote: its PNG, or the ``.npy`` it writes
     without imageio."""
     if png.exists():
-        import imageio.v2 as imageio
-        return np.asarray(imageio.imread(png))
+        from PIL import Image
+        return np.asarray(Image.open(png))
     return np.load(png.with_suffix(".npy"))
 
 
@@ -2777,7 +2777,7 @@ def mesh_programs(ranks: int, backend: str) -> dict:
     serving = NeuralRayGenRenderer(
         height=H, width=W, depth_hw=(DH, DW), **preset_kwargs("serving"),
         device="cpu", generator=torch.Generator().manual_seed(0))
-    ref_info, c2w, qdr = bench_inputs(H, W, DH, DW)
+    ref_info, c2w, qdr = bench.bench_inputs(H, W, DH, DW)
     chunk = 4096
     jobs = [_mono_job(H, W, batch_size, torch.float32, MESH_STEPS),
             (programs.renderer_steps, dict(
@@ -2885,9 +2885,265 @@ def parallel_group() -> dict:
     _mesh_render_cli()
     return mesh_programs(2, "gloo")
 
+# ---------------------------------------------------------------------------
+# measurement and evaluation tools
+# ---------------------------------------------------------------------------
+
+MEASURE_OUT = Path("data/chip_smoke_measure")
+BENCH_CHUNK = 4096
+# tools.bench runs: (argv, mlp2 launches a frame); one mlp2 launch per
+# chunk pass: 128 fine + 32 coarse (H/2 x W/2) chunks at 4096 rays, none
+# when the aggregation (where out_geometry_fc lives) is ablated, one pass
+# of 128 chunks for DINER
+BENCH_RUNS = {
+    "chunk4096": (["--chunk", str(BENCH_CHUNK)], 160),
+    "video_b2": (["--chunk", str(BENCH_CHUNK), "--video-batch", "2",
+                  "--no-roofline"], 160),
+    "depth_stack": (["--chunk", str(BENCH_CHUNK), "--with-depth-stack",
+                     "--no-roofline"], 160),
+    "ablate_agg": (["--chunk", str(BENCH_CHUNK), "--ablate", "agg"], 0),
+    "ablate_gather": (["--chunk", str(BENCH_CHUNK), "--ablate", "gather"],
+                      160),
+    "ablate_attn": (["--chunk", str(BENCH_CHUNK), "--ablate", "attn"], 160),
+    "diner": (["--chunk", str(BENCH_CHUNK), "--diner"], 128),
+    # the tool's default: serving at 256-ray chunks (2048 fine + 512
+    # coarse launches) and the turbo point
+    "default": ([], H * W // 256 + (H // 2) * (W // 2) // 256),
+}
+
+
+def bench_tool(card: str) -> dict:
+    """``tools.bench`` at 512x1024 in each mode of BENCH_RUNS, in process:
+    its JSON line (with the card), the mlp2 launches of its counted frame
+    (and of a B = 2 video pass) asserted, all ``lanes``, no mlp3; the
+    whole call's launches, finite positive times, and on the roofline run
+    an agg MFU in (0, 1.05].  Returns {run: mlp2 launches a frame}."""
+    launches = {}
+    for run, (argv, expected) in BENCH_RUNS.items():
+        fused_mlp.reset_launches()
+        t0 = time.perf_counter()
+        rec = bench.main(argv)
+        seconds = time.perf_counter() - t0
+        calls = fused_mlp.MLP2_LAUNCHES
+        emit({"phase": "bench", "run": run, "argv": argv, **rec,
+              "tool_seconds": seconds, "mlp2_launches_in_call": calls,
+              "card": card})
+        counts = [(rec["mlp2_launches"], rec["mlp2_lanes_launches"])]
+        if "video_batch" in rec:
+            counts.append((rec["video_mlp2_launches"],
+                           rec["video_mlp2_lanes_launches"]))
+        if any(c != (expected, expected) for c in counts) or \
+                rec["mlp3_launches"] or (expected and not calls):
+            raise AssertionError(f"bench {run}: mlp2 (all, lanes) {counts},"
+                                 f" expected {expected}; mlp3 "
+                                 f"{rec['mlp3_launches']}")
+        times = [rec["value"], *rec["runs"]] + [
+            rec[k] for k in ("turbo_ms_per_frame", "video_ms_per_frame",
+                             "scene_prep_ms", "agg_ms", "gather_ms",
+                             "gather_ns_per_row")
+            if k in rec]
+        if not all(np.isfinite(t) and t > 0 for t in times) or \
+                rec["vs_baseline"] is not None:
+            raise AssertionError(f"bench {run}: {rec}")
+        if "agg_mfu" in rec and not 0 < rec["agg_mfu"] <= 1.05:
+            raise AssertionError(f"bench {run}: agg MFU {rec['agg_mfu']}")
+        launches[run] = rec["mlp2_launches"]
+    return launches
+
+
+def gather_row_sweep(card: str) -> None:
+    """ns per merged-map row: the bilinear fetch of one chunk's strided
+    serving rows (``tools.bench.frame_rows``: coarse stride 4 at (H/2,
+    W/2), fine 16) iterated on the card by ``tools.bench.time_chain``, in
+    the depth-major order the frame fetches and in a random order, at the
+    serving chunk (256 rays) and at 4096 rays; 4 rows (a 2x2 window) per
+    point and view.  The time per row falls with the chunk, so the
+    roofline keeps no per-row constant (``GATHER_NS_PER_ROW`` None) and
+    ``tools.bench`` reports its own chunk's."""
+    ref_info, c2w, _ = bench.bench_inputs(H, W, DH, DW)
+    w2c = torch.as_tensor(ref_info["w2c"], dtype=torch.float32,
+                          device="cuda")
+    g = torch.Generator("cuda").manual_seed(0)
+    merged = torch.rand(RFN, H, W, 77, device="cuda", generator=g).to(BF16)
+    step = bench.gather_step(merged)
+    row = {"phase": "gather_rows", "row_channels": 77, "dtype": "bfloat16",
+           "card": card}
+    with torch.inference_mode():
+        for chunk in (PRESET_CHUNK["serving"], BENCH_CHUNK):
+            pts = bench.frame_rows(H, W, chunk, 64, (4, 16), 2, c2w, w2c)
+            perm = torch.randperm(pts.shape[1], device="cuda", generator=g)
+            for order, p in (("depth_major", pts), ("scattered",
+                                                    pts[:, perm])):
+                s = bench.time_chain(step, p, 256, torch.device("cuda"))
+                rows = p.shape[0] * p.shape[1] * 4
+                row[f"ns_per_row_{order}_{chunk}"] = s * 1e9 / rows
+                row[f"us_per_call_{order}_{chunk}"] = s * 1e6
+            row[f"rows_per_call_{chunk}"] = rows
+    emit(row)
+    if not all(v > 0 for k, v in row.items() if k.startswith("ns_")):
+        raise AssertionError(f"gather_rows: {row}")
+
+
+def bench_train_tool(card: str) -> dict:
+    """``tools.bench_train`` on both recipes at full width (5 timed steps
+    after a warm-up): ms/step, finite losses, 2 mlp2 launches a step of
+    the gen recipe (both ``lanes``) and none in the MVS recipe."""
+    rows = bench_train.main(["--recipe", "all", "--iters",
+                             str(TRAIN_STEPS - 1)])
+    out = {}
+    for rec, per_step in zip(rows, (2, 0)):
+        emit({"phase": "bench_train", **rec, "card": card})
+        want = [per_step] * TRAIN_STEPS
+        if rec["mlp2_launches_per_step"] != want or \
+                rec["mlp2_lanes_launches_per_step"] != want or \
+                not np.isfinite(rec["losses"]).all() or rec["value"] <= 0:
+            raise AssertionError(f"bench_train: {rec}")
+        out[rec["metric"]] = rec["mlp2_launches_per_step"][-1]
+    return out
+
+
+def lpips_check(card: str) -> Path:
+    """LPIPS (``train/lpips.py``, random weights from seed 0) on two
+    512x1024 images on the card (ms, median of 3), then at 64x128 on the
+    card against the CPU (relative 1e-4).  Returns the weights, saved as
+    the JAX package's ``.npz``."""
+    rng = np.random.default_rng(5)
+    model = tlpips.LPIPS(torch.Generator().manual_seed(0))
+    path = MEASURE_OUT / "lpips_random.npz"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tlpips.save_lpips_weights(model, path)
+    cuda = tlpips.lpips_fn(tlpips.load_lpips_weights(path, "cuda"))
+    cpu = tlpips.lpips_fn(tlpips.load_lpips_weights(path, "cpu"))
+
+    def pair(h, w):
+        a = rng.uniform(size=(1, h, w, 3)).astype(np.float32)
+        b = np.clip(a + 0.1 * rng.normal(size=a.shape), 0, 1)
+        return torch.tensor(a), torch.tensor(b, dtype=torch.float32)
+    a, b = (t.cuda() for t in pair(H, W))
+    full = cuda(a, b)
+    ms, runs = timed_ms(lambda: cuda(a, b))
+    a, b = pair(64, 128)
+    small_cuda, small_cpu = cuda(a.cuda(), b.cuda()).cpu(), cpu(a, b)
+    rel = ((small_cuda - small_cpu).abs() / small_cpu.abs()).max().item()
+    emit({"phase": "lpips", "hw": [H, W], "ms": ms, "ms_runs": runs,
+          "lpips": full.item(), "hw_small": [64, 128],
+          "lpips_small_cuda": small_cuda.item(),
+          "lpips_small_cpu": small_cpu.item(), "rel_cuda_vs_cpu": rel,
+          "card": card})
+    if not (torch.isfinite(full).all() and full.item() > 0) or \
+            not rel <= 1e-4:
+        raise AssertionError(f"lpips: {full}, cuda vs cpu {rel}")
+    return path
+
+
+def trainer_files() -> dict:
+    """Seeded renderer, mono and MVS files written by the trainers' own
+    ``save`` (for ``parity_check`` when the training groups do not run)."""
+    root = MEASURE_OUT / "ckpts"
+    g = torch.Generator().manual_seed(0)
+    renderer = NeuralRayGenRenderer(height=H, width=W, depth_hw=(DH, DW),
+                                    device="cpu", generator=g)
+    gen = trainer_mod.Trainer(renderer, None, trainer_mod.TrainerConfig(
+        name="gen", save_dir=str(root))).save("latest")
+    mono = tunifuse.UniFuse()
+    tblocks.init_parameters_(mono, g)
+    mono_ckpt = depth_trainer.DepthTrainer(
+        mono, None, depth_trainer.DepthTrainConfig(
+            name="mono", save_dir=str(root))).save()
+    mvs = tmvs.MVSDepthModel()
+    tblocks.init_parameters_(mvs, g)
+    mvs_ckpt = depth_trainer.DepthTrainer(
+        mvs, None, depth_trainer.DepthTrainConfig(
+            name="mvs", save_dir=str(root)), frozen={"d_net": mono}).save()
+    return {"renderer": gen, "mono": mono_ckpt, "mvs": mvs_ckpt}
+
+
+def parity_check_tool(files: dict, lpips_weights: Path, card: str) -> int:
+    """``tools.parity_check`` on the renderer, mono and MVS files of the
+    training groups: every key loads, then the composed exact render of
+    one 512x1024 scene (float32, 8192-ray chunks: 64 coarse + 64 fine
+    mlp2 launches, all ``lanes``) with LPIPS, exit 0; the same renderer
+    file with one tensor cut exits 1.  Returns the render's launches."""
+    out = MEASURE_OUT / "parity"
+    argv = ["--renderer-pth", str(files["renderer"]), "--mono-pth",
+            str(files["mono"]), "--mvs-pth", str(files["mvs"]), "--num", "1",
+            "--lpips-weights", str(lpips_weights), "--out", str(out)]
+    fused_mlp.reset_launches()
+    t0 = time.perf_counter()
+    code = parity_check.main(argv)
+    seconds = time.perf_counter() - t0
+    count, count3 = fused_mlp.MLP2_LAUNCHES, fused_mlp.MLP3_LAUNCHES
+    variants = dict(fused_mlp.VARIANT_LAUNCHES)
+    mean = json.loads((out / "metric.txt").read_text())
+    raw = torch.load(files["renderer"], weights_only=False)
+    key = "agg_net.agg_impl.out_geometry_fc.0.weight"
+    raw["network_state_dict"][key] = raw["network_state_dict"][key][:, :8]
+    bad = MEASURE_OUT / "misshaped.pth"
+    torch.save(raw, bad)
+    bad_code = parity_check.main(["--renderer-pth", str(bad),
+                                  "--key-check-only"])
+    emit({"phase": "parity_check", "files": {k: str(v) for k, v in
+                                             files.items()},
+          "exit": code, "exit_misshaped": bad_code, "seconds": seconds,
+          **mean, "mlp2_launches": count, "mlp3_launches": count3,
+          "variant_launches": variants, "card": card})
+    expected = 2 * H * W // 8192
+    if code != 0 or bad_code != 1 or not all(
+            np.isfinite(v) for v in mean.values()):
+        raise AssertionError(f"parity_check: exit {code} / {bad_code}, "
+                             f"{mean}")
+    if count != expected or count3:
+        raise AssertionError(f"parity_check: mlp2 launched {count} times, "
+                             f"expected {expected}; mlp3 {count3}")
+    assert_specialised("parity_check", count, variants)
+    return count
+
+
+def eval_dirs_tool(card: str) -> None:
+    """``tools.eval_dirs`` over the render CLI's eval frame (the
+    ``render_cli`` group's, else parity_check's): its PSNR, SSIM and
+    WS-PSNR from the 8-bit images against the CLI's own metrics of the
+    float frame (0.05 dB, 1e-2).  Without imageio the CLI writes its
+    images as ``.npy`` (as the JAX tool does); they are written as PNG
+    beside the tool's input first."""
+    from PIL import Image
+    src = Path(RENDER_OUT)
+    if not (src / "metric.txt").exists():
+        src = MEASURE_OUT / "parity"
+    cli = json.loads((src / "metric.txt").read_text())
+    frames = MEASURE_OUT / "eval_frames"
+    frames.mkdir(parents=True, exist_ok=True)
+    for name in ("0-nr_fine", "0-gt"):
+        Image.fromarray(read_frame(src / f"{name}.png")).save(
+            frames / f"{name}.png")
+    mean = eval_dirs.main(["--dir_gt", str(frames), "--dir_pr",
+                           str(frames)])
+    emit({"phase": "eval_dirs", "dir": str(src), "images": str(frames),
+          **(mean or {}), "cli_metrics": cli, "card": card})
+    if mean is None or abs(mean["psnr_nr"] - cli["psnr_nr"]) > 0.05 or \
+            abs(mean["wspsnr_nr"] - cli["wspsnr_nr"]) > 0.05 or \
+            abs(mean["ssim_nr"] - cli["ssim_nr"]) > 1e-2:
+        raise AssertionError(f"eval_dirs: {mean} against the CLI's {cli}")
+
+
+def measure_group(files: dict) -> dict:
+    """The measurement and evaluation tools on the card (see the phases'
+    docstrings); ``files``: the training groups' renderer / mono / MVS
+    files, None to write seeded ones.  Returns mlp2 launches by path."""
+    card = gpu_name_and_power()
+    out = {f"bench_{k}": v for k, v in bench_tool(card).items()}
+    gather_row_sweep(card)
+    out.update(bench_train_tool(card))
+    weights = lpips_check(card)
+    out["parity_check"] = parity_check_tool(files or trainer_files(),
+                                            weights, card)
+    eval_dirs_tool(card)
+    return out
+
+
 PHASES = ("kernels", "serving", "training", "depth_stack",
           "depth_training", "render_cli", "video", "mv_ft", "modes",
-          "depth_variants", "data", "parallel")
+          "depth_variants", "data", "parallel", "measure")
 
 
 def main(argv=None) -> int:
@@ -2923,7 +3179,7 @@ def main(argv=None) -> int:
         row["launches_turbo"] = launches["turbo"]
         row3["launches"] += mlp3_serving
         cuda_vs_cpu()
-    gen_ckpt = mvs_ckpt = pool_ms = None
+    gen_ckpt = mono_ckpt = mvs_ckpt = pool_ms = None
     if "training" in phases:
         row["launches_train_per_step"], mlp3_train, gen_ckpt, pool_ms = \
             train_full_width()
@@ -2939,7 +3195,7 @@ def main(argv=None) -> int:
         row3["launches"] += runs["mlp3"]
         depth_train_cuda_vs_cpu()
         depth_eval(runs["mono_ckpt"], runs["mvs_ckpt"])
-        mvs_ckpt = runs["mvs_ckpt"]
+        mono_ckpt, mvs_ckpt = runs["mono_ckpt"], runs["mvs_ckpt"]
     if "render_cli" in phases:
         cli = render_cli(mvs_ckpt or random_mvs_ckpt())
         row["launches_render_cli_eval"] = cli["eval"]
@@ -2991,6 +3247,12 @@ def main(argv=None) -> int:
         row["launches_mesh_frame_per_rank"] = par["frame_per_rank"]
         row["launches_mesh_train_per_rank_per_step"] = \
             par["train_per_rank_per_step"]
+    if "measure" in phases:
+        # each run asserts its own mlp3 count of 0
+        files = None if None in (gen_ckpt, mono_ckpt, mvs_ckpt) else {
+            "renderer": gen_ckpt, "mono": mono_ckpt, "mvs": mvs_ckpt}
+        for path, n in measure_group(files).items():
+            row[f"launches_{path}"] = n
     # no path of either package calls mlp3: the main paths launch it 0 times
     # (render_cli asserts its own 0)
     if row3["launches"] != 0:

@@ -6,6 +6,8 @@ along the samples of each ray and emits density and view-blended RGB.
 Module and parameter names follow the reference PyTorch layout
 (``prob_embed.0``, ``agg_impl.base_fc.0``, ``agg_impl.ray_attention.w_qs``,
 ...).  ``_Seq`` is where the ``mlp2`` CUDA kernel enters the path.
+``ablate_attention`` (measurement only, ``tools/bench.py --ablate attn``)
+passes the pooled features by the ray attention, whose parameters stay.
 """
 
 from __future__ import annotations
@@ -185,9 +187,10 @@ class IBRNetWithNeuRay(nn.Module):
     """
 
     def __init__(self, neuray_in_dim: int = 32, in_feat_ch: int = 32,
-                 geometry_only: bool = False):
+                 geometry_only: bool = False, ablate_attention: bool = False):
         super().__init__()
         self.geometry_only = geometry_only
+        self.ablate_attention = ablate_attention
         f = in_feat_ch + 3
         for name, dims in _POOL_DIMS.items():
             self.add_module(name, _Seq(dims(f, neuray_in_dim)))
@@ -236,7 +239,8 @@ class IBRNetWithNeuRay(nn.Module):
             num_valid_obs = nvalid.reshape(nr, dn, 1).float()
         globalfeat = geo + self._pos_encoding(dn, geo)[None]
         attn_mask = (num_valid_obs[..., 0] > 1).to(dt)
-        globalfeat = self.ray_attention(globalfeat, attn_mask[..., None])
+        if not self.ablate_attention:
+            globalfeat = self.ray_attention(globalfeat, attn_mask[..., None])
         sigma = self.out_geometry_fc(globalfeat).float()
         sigma = torch.where(num_valid_obs < 1, torch.zeros_like(sigma), sigma)
         return torch.cat([rgb_out.float(), sigma], -1)
@@ -246,13 +250,13 @@ class DefaultAggregationNet(nn.Module):
     """prob-embed + dir-diff + IBRNetWithNeuRay."""
 
     def __init__(self, neuray_dim: int = 32, in_feat_ch: int = 32,
-                 geometry_only: bool = False):
+                 geometry_only: bool = False, ablate_attention: bool = False):
         super().__init__()
         self.prob_embed = nn.Sequential(nn.Linear(neuray_dim + 2, neuray_dim),
                                         nn.ReLU(),
                                         nn.Linear(neuray_dim, neuray_dim))
         self.agg_impl = IBRNetWithNeuRay(neuray_dim, in_feat_ch,
-                                         geometry_only)
+                                         geometry_only, ablate_attention)
 
     def forward(self, prj_dict: dict) -> tuple:
         """

@@ -10,7 +10,8 @@ weights copy over by key and its state dict without ``init_net.*`` plus
 the ray features is this module's.  There is no init net: the cached MVS
 depth only guides the fine samples, within 3 sigma of it
 (``ft_depth_range_at_coords``).  One pass is the gen renderer's own
-``render_by_depth``.
+``render_by_depth``, which reads ``ablate`` (as the JAX ft renderer's, its
+aggregation nets keep their ray attention under "attn").
 """
 
 from __future__ import annotations
@@ -26,7 +27,8 @@ from panogrf_tpu_torch.renderer.agg_net import DefaultAggregationNet
 from panogrf_tpu_torch.renderer.dist_decoder import \
     MixtureLogisticsDistDecoder
 from panogrf_tpu_torch.renderer.init_net import DefaultVisEncoder
-from panogrf_tpu_torch.renderer.renderer import NeuralRayGenRenderer
+from panogrf_tpu_torch.renderer.renderer import (ABLATIONS,
+                                                 NeuralRayGenRenderer)
 from panogrf_tpu_torch.renderer.sample_utils import (
     precompute_depth_sampling, sample_3sigma)
 from panogrf_tpu_torch.utils.device import resolve_device
@@ -46,9 +48,13 @@ class NeuralRayFtRenderer(nn.Module):
                  depth_sample_num: int = 64, fine_depth_sample_num: int = 64,
                  use_hierarchical_sampling: bool = True,
                  fine_depth_use_all: bool = False, use_disp: bool = True,
+                 ablate: str = "",
                  device: str | torch.device = "cuda",
                  generator: torch.Generator | None = None):
         dev = resolve_device(device)
+        if ablate not in ABLATIONS:
+            raise ValueError(f"unknown ablate {ablate!r}; choose from "
+                             f"{ABLATIONS}")
         super().__init__()
         self.convention = get_convention(convention_name)
         self.height, self.width = height, width
@@ -65,6 +71,7 @@ class NeuralRayFtRenderer(nn.Module):
         self.gather_depth_major = False
         self.gather_stride = self.gather_stride_fine = 1
         self.gather_nearest = self.use_vis = self.render_uncert = False
+        self.ablate = ablate
 
         g = generator if generator is not None \
             else torch.Generator().manual_seed(0)

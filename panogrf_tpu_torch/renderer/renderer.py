@@ -8,7 +8,14 @@ statistics alone), DINER's depth-guided single pass (``render_rays_diner``,
 ``sampling_mode="diner"``), perspective query cameras (``perspec_cam``,
 cube faces), and the training forward with its depth-loss head and, with
 ``use_self_hit_prob``, the query view's own hit probabilities of the
-consistency loss.  ``local_feature_type`` / ``init_net_feature_type``
+consistency loss.  ``ablate`` (measurement only,
+``tools/bench.py --ablate``) stands a trivial stage in for one the frame
+pays for, so that the frame's time without it attributes its cost:
+"gather" fetches every merged-map row from a constant 1x1 map, "agg"
+replaces the aggregation net by a reduction of the fetched rows (no
+``mlp2`` launch), "agg+gather" does both and "attn" skips the ray
+attention; the images are not renders.  ``local_feature_type`` /
+``init_net_feature_type``
 "ERP+TP" swap the image encoder's and the init net's ``ResUNetLight`` for
 the dual ERP + tangent-patch encoder (``nrows``, ``patch_size``), whose
 fusion BatchNorms keep their running statistics under training, as in
@@ -46,6 +53,9 @@ from panogrf_tpu_torch.renderer.init_net import (CostVolumeInitNet,
 from panogrf_tpu_torch.renderer.sph_solver import depth2normal
 from panogrf_tpu_torch.utils.device import resolve_device
 
+# the measurement-only stage ablations (``tools/bench.py --ablate``)
+ABLATIONS = ("", "agg", "gather", "agg+gather", "attn")
+
 
 class NeuralRayGenRenderer(nn.Module):
     """Generalizable renderer; constructor flags as in the JAX package
@@ -54,7 +64,8 @@ class NeuralRayGenRenderer(nn.Module):
     "diner" with its ``diner_*`` counts, ``light_coarse`` with
     ``coarse_proxy_samples``, ``gather_nearest``, ``use_vis``,
     ``render_uncert``, and the encoders' ``local_feature_type`` /
-    ``init_net_feature_type`` with ``nrows`` and ``patch_size``)."""
+    ``init_net_feature_type`` with ``nrows`` and ``patch_size``, and the
+    measurement-only ``ablate``)."""
 
     def __init__(self, *, convention_name: str = "m3d", height: int = 512,
                  width: int = 1024, depth_hw: tuple = (256, 512),
@@ -77,12 +88,15 @@ class NeuralRayGenRenderer(nn.Module):
                  diner_n_uniform: int = 0, diner_contain_uniform: int = 0,
                  local_feature_type: str = "ERP",
                  init_net_feature_type: str = "ERP", nrows: int = 4,
-                 patch_size: int = 64,
+                 patch_size: int = 64, ablate: str = "",
                  device: str | torch.device = "cuda",
                  generator: torch.Generator | None = None):
         dev = resolve_device(device)
         if sampling_mode not in ("hierarchical", "diner"):
             raise ValueError(f"unknown sampling_mode {sampling_mode!r}")
+        if ablate not in ABLATIONS:
+            raise ValueError(f"unknown ablate {ablate!r}; choose from "
+                             f"{ABLATIONS}")
         super().__init__()
         self.convention = get_convention(convention_name)
         self.height, self.width = height, width
@@ -109,6 +123,7 @@ class NeuralRayGenRenderer(nn.Module):
         self.diner_n_gaussian = diner_n_gaussian
         self.diner_n_uniform = diner_n_uniform
         self.diner_contain_uniform = diner_contain_uniform
+        self.ablate = ablate
 
         self.image_encoder = (
             ERPTPEncoder(32, (1, 2, 6), 16, nrows, patch_size)
@@ -120,12 +135,14 @@ class NeuralRayGenRenderer(nn.Module):
                                           nrows=nrows, patch_size=patch_size)
         self.vis_encoder = DefaultVisEncoder()
         self.dist_decoder = MixtureLogisticsDistDecoder(use_vis=use_vis)
+        attn = ablate == "attn"
         self.agg_net = DefaultAggregationNet(
-            geometry_only=coarse_geometry_only and use_hierarchical_sampling)
+            geometry_only=coarse_geometry_only and use_hierarchical_sampling,
+            ablate_attention=attn)
         if use_hierarchical_sampling:
             self.fine_dist_decoder = MixtureLogisticsDistDecoder(
                 use_vis=use_vis)
-            self.fine_agg_net = DefaultAggregationNet()
+            self.fine_agg_net = DefaultAggregationNet(ablate_attention=attn)
         init_parameters_(self, generator if generator is not None
                          else torch.Generator().manual_seed(0))
         self.register_buffer(
@@ -234,6 +251,12 @@ class NeuralRayGenRenderer(nn.Module):
                   if is_fine else self.gather_stride)
         # a stride above dn/2 would fetch one row per ray
         stride = max(1, min(stride, que_depth.shape[-1] // 2))
+        if "gather" in self.ablate and "merged_full" in ref_data:
+            # every row from a constant 1x1 map: the fetch degenerates to
+            # a broadcast, the other stages run as they do
+            ref_data = dict(ref_data)
+            ref_data["merged_full"] = \
+                ref_data["merged_full"][:, :1, :1] * 0 + 0.1
         prj = ro.project_points_dict(ref_data, que_pts, self.convention,
                                      que_dir.to(dt),
                                      depth_major=self.gather_depth_major,
@@ -262,8 +285,17 @@ class NeuralRayGenRenderer(nn.Module):
         prj["vis"] = visibility[..., None].to(dt)
         prj["hit_prob"] = hit_prob[..., None].to(dt)
 
-        agg = self.fine_agg_net if is_fine else self.agg_net
-        density, colors = agg(prj)
+        if "agg" in self.ablate:
+            # a reduction of the fetched rows in place of the aggregation
+            density = torch.sum(prj["hit_prob"][..., 0] + 1e-3 * torch.sum(
+                prj["ray_feats"], -1), -1)
+            colors = torch.mean(prj["rgb"], -2)
+            if prj.get("layout") == "dnr":
+                density, colors = density.transpose(1, 2), \
+                    colors.transpose(1, 2)
+        else:
+            agg = self.fine_agg_net if is_fine else self.agg_net
+            density, colors = agg(prj)
         density, colors = density.float(), colors.float()
         return self._outputs(que_depth, colors, density,
                              ro.density2outputs(density, colors, que_depth))

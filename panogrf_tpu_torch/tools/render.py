@@ -4,13 +4,16 @@
         [--height H --width W] [--pose-type eval|inter] [--inter-num K] \\
         [--frame-batch B] [--preset serving] [--chunk C] \\
         [--depth-stack | --mono-ckpt F [--mvs-ckpt F] [--wo-stereo]] \\
-        [--shards DIR] [--out DIR] [--mesh N] [--device cpu]
+        [--shards DIR] [--lpips-weights W] [--out DIR] [--mesh N] \\
+        [--device cpu]
 
 Port of the repo's ``tools/render.py``.  The scenes are procedural 3-view
 samples, or with ``--shards`` the first ``--num`` samples of a shard
 directory (``tools/prepare_data.py``, ``tools/import_lmdb.py``).  'eval'
 renders the held-out query view of each scene and writes ``<i>-nr_fine.png``, ``<i>-gt.png`` and the
-mean PSNR / SSIM / WS-PSNR with the seconds per frame in ``metric.txt``;
+mean PSNR / SSIM / WS-PSNR (and LPIPS with ``--lpips-weights``, an
+``.npz`` or a directory that ``train/lpips.load_lpips_weights`` reads)
+with the seconds per frame in ``metric.txt``;
 'inter' renders a path of ``--inter-num`` poses between the two reference
 views, ``--frame-batch`` poses per pass (``render_video_device``), and
 writes ``<i>-frame<k>.png`` and ``<i>-video.gif``.  Without imageio the
@@ -33,7 +36,6 @@ ranks, one process each (``parallel/launch.run_ranks``: NCCL on N cards,
 gloo on the CPU with ``--device cpu``), the preset's low-res coarse pass
 included (``parallel/sharded_render.py``); H*W must divide by N.  Pose
 paths render on rank 0 alone, and rank 0 writes every file.
-``--lpips-weights`` is not ported yet and is refused.
 """
 
 from __future__ import annotations
@@ -63,6 +65,7 @@ from panogrf_tpu_torch.renderer.presets import (PRESET_CHUNK,
                                                 PRESET_COARSE_LOWRES,
                                                 preset_kwargs)
 from panogrf_tpu_torch.renderer.renderer import NeuralRayGenRenderer
+from panogrf_tpu_torch.train import lpips as L
 from panogrf_tpu_torch.train import metrics as M
 from panogrf_tpu_torch.train.trainer import load_checkpoint_params
 from panogrf_tpu_torch.utils.device import resolve_device, synchronize
@@ -115,7 +118,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--shards", default=None,
                     help="render the first --num samples of this shard "
                          "directory instead of procedural scenes")
-    ap.add_argument("--lpips-weights", default=None, help="not ported yet")
+    ap.add_argument("--lpips-weights", default=None,
+                    help="LPIPS weights (.npz, or a directory with "
+                         "vgg16.pth and lpips_vgg.pth): score each eval "
+                         "frame")
     ap.add_argument("--mesh", type=int, default=0, metavar="N",
                     help="split each eval frame's rays over N ranks (one "
                          "card each; --device cpu: N CPU processes)")
@@ -139,9 +145,6 @@ def main(argv=None) -> dict:
     'eval', their mean, per-scene path timings of 'inter', the depth
     stack's nets and its seconds per scene (rank 0's with ``--mesh``)."""
     args = parse_args(argv)
-    if args.lpips_weights:
-        raise NotImplementedError("--lpips-weights (LPIPS) is not ported "
-                                  "to panogrf_tpu_torch yet")
     if args.mesh:
         n = args.height * args.width
         if n % args.mesh:
@@ -207,6 +210,11 @@ def run(args: argparse.Namespace, mesh=None) -> dict:
         print(f"depth stack: mono={args.mono_ckpt or 'random'} mvs={mvs}")
         summary["depth_stack"] = {"mono": args.mono_ckpt or "random",
                                   "mvs": mvs}
+
+    lpips_score = None
+    if args.lpips_weights and chief:
+        lpips_score = L.lpips_fn(L.load_lpips_weights(args.lpips_weights,
+                                                      dev))
 
     coords = imgs_info.sample_train_coords(np.random.default_rng(0), H, W, 8,
                                            device=dev)
@@ -323,6 +331,8 @@ def run(args: argparse.Namespace, mesh=None) -> dict:
             continue
         gt = s["rgb_panos"][imgs_info.QUE_ID]
         m = {k: float(v) for k, v in M.render_metrics(rgb, gt).items()}
+        if lpips_score is not None:
+            m["lpips"] = float(lpips_score(gt[None], rgb[None])[0])
         m["sec_per_frame"] = dt
         summary["frames"].append(m)
         save_image(out_dir / f"{qi}-nr_fine.png", rgb.cpu().numpy())

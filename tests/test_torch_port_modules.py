@@ -285,3 +285,44 @@ def test_weights_round_trip_through_converter(jax_model):
     assert [k for k, _ in flat_a[0]] == [k for k, _ in flat_b[0]]
     for (k, x), (_, y) in zip(flat_a[0], flat_b[0]):
         np.testing.assert_array_equal(x, y, err_msg=str(k))
+
+
+@pytest.mark.parametrize("part", ["init_net", "prepare_ref"])
+def test_float64_at_depth_16x32(jax_model, part):
+    """At depth_hw (16, 32) the init net's deepest stage is 1x2 pixels: in
+    float32 each package is far from its own float64 output there (see the
+    module docstring), so the two are held to each other in float64, the
+    init net and the whole per-scene encoding."""
+    p, sd = jax_model
+    rng = np.random.default_rng(6)
+    imgs = rng.uniform(size=(2, H, W, 3))
+    depth = rng.uniform(1, 5, size=(2, 16, 32, 1))
+    kw = dict(height=H, width=W, depth_hw=(16, 32), depth_sample_num=DN,
+              fine_depth_sample_num=DN, compute_dtype="float64")
+    with jax.enable_x64(True):
+        p64 = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), p)
+        if part == "init_net":
+            want = {"ray_feats": jinit.CostVolumeInitNet(
+                depth_hw=(16, 32)).apply({"params": p64["init_net"]},
+                                         jnp.asarray(imgs),
+                                         jnp.asarray(depth))}
+        else:
+            want = JR(**kw).apply({"params": p64}, jnp.asarray(imgs),
+                                  jnp.asarray(depth), method=JR.prepare_ref)
+        want = {k: np.asarray(v) for k, v in want.items()}
+    with torch.no_grad():
+        if part == "init_net":
+            tnet = _load(tinit.CostVolumeInitNet((16, 32)), sd,
+                         "init_net").double()
+            got = {"ray_feats": tnet(torch.tensor(imgs),
+                                     torch.tensor(depth))}
+        else:
+            tm = TR(**kw, device="cpu")
+            tm.load_state_dict(sd)
+            got = tm.double().eval().prepare_ref(torch.tensor(imgs),
+                                                 torch.tensor(depth))
+    assert set(want) <= set(got)
+    for k, v in want.items():
+        assert got[k].dtype == torch.float64, k
+        np.testing.assert_allclose(got[k].numpy(), v, rtol=1e-7,
+                                   atol=1e-7 * np.abs(v).max(), err_msg=k)

@@ -17,8 +17,10 @@ from panogrf_tpu_torch.models import depth_stack
 from panogrf_tpu_torch.renderer import full_render
 from panogrf_tpu_torch.renderer.ft_renderer import NeuralRayFtRenderer
 from panogrf_tpu_torch.renderer.renderer import NeuralRayGenRenderer
-from panogrf_tpu_torch.tools import (render, render_ft, render_mv, train_ft,
-                                     train_renderer)
+from panogrf_tpu_torch.tools import (bench, bench_train, eval_dirs,
+                                     parity_check, render, render_ft,
+                                     render_mv, train_ft, train_renderer)
+from panogrf_tpu_torch.train import lpips
 from panogrf_tpu_torch.train.trainer import Trainer
 from torch_port_threads import one_torch_thread  # noqa: F401
 
@@ -48,11 +50,11 @@ def test_no_source_file_mentions_jax():
     pattern = re.compile(r"import jax|from jax|flax|panogrf_tpu\.")
     offenders = [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")
                  if pattern.search(p.read_text())]
-    assert len(_modules()) >= 69
+    assert len(_modules()) >= 76
     # the depth stack's, the video slice's, depth training's, the
     # multi-view and finetuning slice's, the renderer modes', the
-    # depth-net variants', the data pipeline's and the multi-GPU modules
-    # are among them
+    # depth-net variants', the data pipeline's, the multi-GPU and the
+    # measurement and evaluation modules are among them
     assert {f"panogrf_tpu_torch.{m}" for m in (
         "core.cubemap", "nn.resnet", "nn.fusion", "models.unifuse",
         "models.mvs", "models.depth_stack", "ops.cost_volume",
@@ -68,7 +70,9 @@ def test_no_source_file_mentions_jax():
         "data.augment", "data.online", "tools.prepare_data",
         "tools.import_lmdb", "parallel.mesh", "parallel.launch",
         "parallel.sharded_train", "parallel.sharded_render",
-        "parallel.programs")} <= \
+        "parallel.programs", "tools.bench", "tools.bench_train",
+        "tools.eval_dirs", "tools.parity_check", "train.lpips",
+        "utils.roofline")} <= \
         set(_modules())
     assert not offenders, offenders
 
@@ -150,3 +154,12 @@ def test_entry_points_default_to_cuda(monkeypatch):
     ft = train_ft.FtTrainer(train_ft.parse_args(
         small + ["--rays", "8", "--device", "cpu"]))
     assert ft.model.directions.device.type == "cpu"
+
+    # the measurement and evaluation tools and LPIPS: CUDA unless asked
+    for tool, argv in ((bench, []), (bench_train, []),
+                       (eval_dirs, ["--dir_gt", ".", "--dir_pr", "."]),
+                       (parity_check, ["--renderer-pth", "model.pth"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tool.main(argv)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lpips.load_lpips_weights("w.npz")

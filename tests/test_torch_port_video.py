@@ -302,10 +302,12 @@ def test_render_cli_on_shards_matches_jax(scene, tmp_path):
 
 
 def test_render_cli_refuses_what_is_not_ported(tmp_path):
-    """LPIPS is not ported; ``--mesh`` is (``tests/test_torch_port_
-    parallel.py``), and refuses ranks that do not split the rays."""
+    """LPIPS weights must be an ``.npz`` or a directory of the released
+    files (``tests/test_torch_port_lpips.py`` scores with them); ``--mesh``
+    (``tests/test_torch_port_parallel.py``) refuses ranks that do not split
+    the rays."""
     for extra, error, match in (
-            (["--lpips-weights", "w.npz"], NotImplementedError, "not ported"),
+            (["--lpips-weights", "w.bin"], ValueError, "expected an .npz"),
             (["--mesh", "3"], ValueError, "do not split over 3 ranks")):
         with pytest.raises(error, match=match):
             trender.main(["--device", "cpu", "--out", str(tmp_path), *extra])
