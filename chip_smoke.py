@@ -74,7 +74,12 @@ the wrapper's host cost, then drives the port's two paths at full width
   512x1024 and on the card against the CPU at 64x128,
   ``tools.parity_check`` on the training groups' files (the composed
   exact render, with LPIPS) and ``tools.eval_dirs`` on the render CLI's
-  eval frame.
+  eval frame;
+* the stage profilers: ``tools.profile_honest`` at its default 2048-ray
+  chunk and at 4096 rays with ``--serving``, ``tools.profile_render`` and
+  ``tools.profile_mvs`` at their defaults (every stage finite and above
+  0, its exact ``mlp2`` launches), and the ``agg_net`` and
+  ``attn_tail`` stages on the card against the CPU at 256 rays.
 
 Each path checks that it went through its kernels.  Each phase prints one
 JSON line; any failure raises, so the process exits non-zero.  The last
@@ -135,6 +140,8 @@ from panogrf_tpu_torch.tools import render as render_tool
 from panogrf_tpu_torch.tools import (ab_quality, import_lmdb, prepare_data,
                                      render_cubes, render_ft, render_mv,
                                      train_ft, train_renderer)
+from panogrf_tpu_torch.tools import (profile_honest, profile_mvs,
+                                     profile_render)
 from panogrf_tpu_torch.train import depth_trainer
 from panogrf_tpu_torch.train import lpips as tlpips
 from panogrf_tpu_torch.train import trainer as trainer_mod
@@ -3141,9 +3148,110 @@ def measure_group(files: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the stage profilers
+# ---------------------------------------------------------------------------
+
+# mlp2 launches per application of each stage that launches it (the
+# aggregation net's out_geometry_fc, once per pass); every other stage
+# launches none
+PROFILE_RUNS = {
+    "honest_2048": (profile_honest, [], {"agg_net_ms": 1, "attn_tail_ms": 1,
+                                         "coarse_pass_ms": 1}),
+    "honest_4096_serving": (profile_honest, ["--chunk", "4096", "--serving"],
+                            {"agg_net_ms": 1, "attn_tail_ms": 1,
+                             "coarse_pass_ms": 1}),
+    "render": (profile_render, [], {"render_8192rays_ms": 2,
+                                    "agg_net_ms": 1}),
+    "mvs": (profile_mvs, [], {}),
+}
+# each profiler's stages and the numbers it derives from them: its JAX
+# tool's keys
+PROFILE_STAGES = {
+    profile_honest: (list(profile_honest.GROUPS),
+                     ["coarse_pass_frame_equiv_s"]),
+    profile_render: (["prepare_ref_ms", "render_8192rays_ms",
+                      "project_gather_ms", "agg_net_ms", "dist_decoder_ms",
+                      "raw_gathers_ms"], ["est_frame_ms_from_chunks"]),
+    profile_mvs: (list(profile_mvs.STAGES), []),
+}
+# bfloat16 stages on the card against the CPU's: a few roundings of 2^-8
+PROFILE_BF16_TOL = 2e-2
+
+
+def profile_stages_cuda_vs_cpu() -> None:
+    """``profile_honest``'s ``agg_net`` and ``attn_tail`` stages (seeded
+    weights, the tool's inputs) at a 256-ray chunk in bfloat16: the
+    ``mlp2`` kernel on the card against its plain version on the CPU,
+    within PROFILE_BF16_TOL of each output's largest."""
+    row = {"phase": "profile_cuda_vs_cpu", "chunk": 256,
+           "dtype": "bfloat16", "tol": PROFILE_BF16_TOL}
+    outs = {}
+    with torch.inference_mode():
+        for dev in ("cuda", "cpu"):
+            stages = profile_honest.honest_stages(
+                256, "bfloat16", torch.device(dev), only=["agg", "attn"])
+            fused_mlp.reset_launches()
+            outs[dev] = {k: st.run(st.init) for k, st in stages.items()}
+            row[f"mlp2_launches_{dev}"] = fused_mlp.MLP2_LAUNCHES
+    ok = row["mlp2_launches_cuda"] == 2 and row["mlp2_launches_cpu"] == 0
+    for key, cuda in outs["cuda"].items():
+        cuda = cuda if isinstance(cuda, tuple) else (cuda,)
+        cpu = outs["cpu"][key]
+        cpu = cpu if isinstance(cpu, tuple) else (cpu,)
+        for i, (a, b) in enumerate(zip(cuda, cpu)):
+            a, b = a.float().cpu(), b.float()
+            err = ((a - b).abs().max() / b.abs().max()).item()
+            row[f"{key}[{i}]_rel_err"] = err
+            ok = ok and torch.isfinite(a).all().item() and \
+                err <= PROFILE_BF16_TOL
+    emit(row)
+    if not ok:
+        raise AssertionError(f"profile_cuda_vs_cpu: {row}")
+
+
+def profile_tools_group() -> dict:
+    """Each stage profiler's ``main`` in process at its defaults on the
+    card (``profile_honest`` also at 4096 rays with ``--serving``): its
+    JSON with the card; every stage of its JAX tool timed, finite and
+    above 0, each stage's exact ``mlp2`` launches per application, all
+    ``lanes``; then ``profile_stages_cuda_vs_cpu``.  Returns the mlp2
+    launches of the stages that launch it, by run and stage."""
+    card = gpu_name_and_power()
+    out = {}
+    for run, (tool, argv, expected) in PROFILE_RUNS.items():
+        fused_mlp.reset_launches()
+        t0 = time.perf_counter()
+        rec = tool.main(argv)
+        seconds = time.perf_counter() - t0
+        calls = fused_mlp.MLP2_LAUNCHES
+        variants = dict(fused_mlp.VARIANT_LAUNCHES)
+        emit({"phase": "profile_tools", "run": run, "argv": argv, **rec,
+              "tool_seconds": seconds, "mlp2_launches_in_call": calls,
+              "card": card})
+        stages, derived = PROFILE_STAGES[tool]
+        times = [rec.get(k) for k in stages + derived]
+        want = {k: expected.get(k, 0) for k in stages}
+        if not all(t is not None and np.isfinite(t) and t > 0
+                   for t in times) or rec["tf32"]:
+            raise AssertionError(f"profile_tools {run}: {rec}")
+        if rec["mlp2_launches"] != want or bool(expected) != bool(calls) or \
+                variants["mlp3_mma"] + variants["mlp3_rows"] + \
+                variants["mlp3_generic"]:
+            raise AssertionError(f"profile_tools {run}: mlp2 launches "
+                                 f"{rec['mlp2_launches']}, expected {want};"
+                                 f" variants {variants}")
+        assert_specialised(f"profile_tools {run}", calls, variants)
+        for stage, n in expected.items():
+            out[f"{run}_{stage.removesuffix('_ms')}"] = \
+                rec["mlp2_launches"][stage]
+    profile_stages_cuda_vs_cpu()
+    return out
+
+
 PHASES = ("kernels", "serving", "training", "depth_stack",
           "depth_training", "render_cli", "video", "mv_ft", "modes",
-          "depth_variants", "data", "parallel", "measure")
+          "depth_variants", "data", "parallel", "measure", "profile_tools")
 
 
 def main(argv=None) -> int:
@@ -3253,6 +3361,10 @@ def main(argv=None) -> int:
             "renderer": gen_ckpt, "mono": mono_ckpt, "mvs": mvs_ckpt}
         for path, n in measure_group(files).items():
             row[f"launches_{path}"] = n
+    if "profile_tools" in phases:
+        # each run asserts its own mlp3 count of 0
+        for path, n in profile_tools_group().items():
+            row[f"launches_profile_{path}"] = n
     # no path of either package calls mlp3: the main paths launch it 0 times
     # (render_cli asserts its own 0)
     if row3["launches"] != 0:

@@ -301,8 +301,11 @@ def project_points_dict(ref_data: dict, que_pts: torch.Tensor,
             stats = allf[..., 3 + nd + ni:]
     elif "merged_feats" in ref_data:
         prj_rgb = interpolate_feats_pointmajor(ref_data["imgs"], xy_vm, h, w)
+        # the map is float32 where the ray features were resized onto the
+        # image features' grid (``resize_linear`` promotes); its rows take
+        # the pass's compute dtype, as the merged_full rows do
         merged = interpolate_feats_pointmajor(ref_data["merged_feats"],
-                                              xy_vm, h, w)
+                                              xy_vm, h, w).to(cdt)
         prj_ray_feats = merged[..., :nd]
         prj_img_feats = merged[..., nd:]
     else:

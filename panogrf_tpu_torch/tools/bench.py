@@ -55,6 +55,7 @@ from panogrf_tpu_torch.renderer.presets import (PRESET_CHUNK,
                                                 preset_kwargs)
 from panogrf_tpu_torch.renderer.renderer import (ABLATIONS,
                                                  NeuralRayGenRenderer)
+from panogrf_tpu_torch.tools._stage_timer import time_chain
 from panogrf_tpu_torch.utils import roofline as rl
 from panogrf_tpu_torch.utils.device import resolve_device, synchronize
 
@@ -173,33 +174,6 @@ def counted(fn) -> dict:
     fn()
     return {"mlp2": fused_mlp.MLP2_LAUNCHES, "mlp3": fused_mlp.MLP3_LAUNCHES,
             **fused_mlp.VARIANT_LAUNCHES}
-
-
-def time_chain(step, init, iters: int, dev: torch.device) -> float:
-    """Seconds per call of ``step`` iterated ``iters`` times on its own
-    output.  On the card the iterations are captured in one CUDA graph and
-    its replay is timed with events, so the time is the device's without
-    the host's cost of issuing each kernel (the JAX tool's single
-    dispatch of a ``fori_loop``)."""
-    out = step(init)                 # warm-up: builds, allocator
-    synchronize(dev)
-    if dev.type == "cpu":
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            out = step(out)
-        return (time.perf_counter() - t0) / iters
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = init
-        for _ in range(iters):
-            out = step(out)
-    graph.replay()                   # the first replay uploads the graph
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / 1e3 / iters
 
 
 def serving_rows(h: int, w: int, chunk: int, dn: int, stride: int, c2w,

@@ -399,6 +399,9 @@ def _mono_batch(seed, with_cube):
     return batch
 
 
+_MONO_SHAPES: dict = {}
+
+
 def _mono_setup(name, uncertainty, seed):
     tcls, jcls = MONO[name]
     tm = seeded(tcls(uncertainty=uncertainty), seed).train()
@@ -407,8 +410,13 @@ def _mono_setup(name, uncertainty, seed):
     batch = _mono_batch(seed, with_cube)
     args = ("equi", "cube") if with_cube else ("equi",)
     jmodel = jcls(uncertainty=uncertainty)
-    shapes = jax.eval_shape(jmodel.init, jax.random.PRNGKey(0),
-                            *(jnp.asarray(batch[a]) for a in args))
+    # the JAX init's tree, traced once per net (its forward and gradient
+    # tests share it)
+    if (name, uncertainty) not in _MONO_SHAPES:
+        _MONO_SHAPES[name, uncertainty] = jax.eval_shape(
+            jmodel.init, jax.random.PRNGKey(0),
+            *(jnp.asarray(batch[a]) for a in args))
+    shapes = _MONO_SHAPES[name, uncertainty]
     for col in ("params", "batch_stats"):
         assert tcv.verify_tree_shapes(variables[col], shapes[col]) == []
     tbatch = {k: torch.tensor(v) for k, v in batch.items()}

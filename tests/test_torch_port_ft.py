@@ -59,7 +59,8 @@ from panogrf_tpu_torch.train import trainer as ttr
 from panogrf_tpu_torch.utils.from_jax import (ft_renderer_state_dict,
                                               load_jax_params)
 from torch_port_parity import (OUT_TOL, assert_grads_close, f32_uniform,
-                               inject_uniform, off_seam_coords,
+                               ill_conditioned, inject_uniform,
+                               off_seam_coords, seeded_renderer_params,
                                template_init, to_f64, to_torch)
 from torch_port_threads import one_torch_thread  # noqa: F401
 
@@ -156,27 +157,6 @@ def test_split_gather_matches_jax(depth_major):
 # the ft renderer
 # ---------------------------------------------------------------------------
 
-def ill_conditioned(depth, hit, fine, near=0.5, far=15.0):
-    """The hierarchical fine samples ``fine`` (qn, rn, fdn) whose depth
-    moves by more than OUT_TOL when the sampler's CDF moves by the
-    rounding error of a float32 cumulative sum of DN terms (DN ulps of 1).
-    In the sampler's inverse-depth coordinate x = (1/near - 1/d) /
-    (1/near - 1/far), d depth / d cdf = d^2 (1/near - 1/far) (bin width)
-    / (bin mass), from the coarse depths and hit-probs of float64 JAX."""
-    span = 1 / near - 1 / far
-    x = lambda d: (1 / near - 1 / d) / span
-    xd = x(depth)
-    bins = np.concatenate([xd[..., :1], (xd[..., 1:] + xd[..., :-1]) / 2,
-                           xd[..., -1:]], -1)
-    pdf = hit + 1e-5
-    pdf = pdf / pdf.sum(-1, keepdims=True)
-    j = (x(fine)[..., :, None] >= bins[..., None, 1:-1]).sum(-1)
-    width = np.take_along_axis(np.diff(bins), j, -1)
-    mass = np.take_along_axis(pdf, j, -1)
-    moved = fine ** 2 * span * width / mass * DN * np.finfo(np.float32).eps
-    return moved > OUT_TOL["atol"] + OUT_TOL["rtol"] * fine
-
-
 @pytest.fixture(scope="module")
 def ft_setup():
     """The JAX gen renderer (JAX ``init``), the ft renderer initialised
@@ -191,10 +171,10 @@ def ft_setup():
     data.pop("src_imgs_info")
     data["ref_imgs_info"]["mvs_depth"] = jnp.asarray(
         js["depth_panos"][list(jinfo.REF_IDS)])
-    gen = JR(height=H, width=W, depth_hw=(DH, DW), depth_sample_num=DN,
-             fine_depth_sample_num=DN)
-    gen_params = jax.tree.map(np.asarray, jax.jit(gen.init)(
-        jax.random.PRNGKey(0), data))
+    gen_kw = dict(height=H, width=W, depth_hw=(DH, DW), depth_sample_num=DN,
+                  fine_depth_sample_num=DN)
+    gen = JR(**gen_kw)
+    gen_params = seeded_renderer_params(**gen_kw)
     ft = JFT(rfn=2, ray_feats_hw=(DH // 4, DW // 4), height=H, width=W,
              depth_sample_num=DN, fine_depth_sample_num=DN)
     with pytest.MonkeyPatch.context() as mp:

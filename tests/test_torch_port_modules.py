@@ -73,7 +73,8 @@ def test_resunet_light(jax_model, name, layers, inplanes, hw):
     for part in name.split("."):
         jp = jp[part]
     x = np.random.default_rng(1).uniform(size=(2, *hw, 3)).astype(np.float32)
-    a = JResUNet(32, layers, inplanes).apply({"params": jp}, jnp.asarray(x))
+    a = jax.jit(JResUNet(32, layers, inplanes).apply)({"params": jp},
+                                                       jnp.asarray(x))
     b = _load(TResUNet(32, layers, inplanes), sd, name)(torch.tensor(x))
     np.testing.assert_allclose(_np(b), np.asarray(a), **TOL)
 
@@ -84,7 +85,7 @@ def test_cost_volume_init_net_and_vis_encoder(jax_model):
     imgs = rng.uniform(size=(2, H, W, 3)).astype(np.float32)
     depth = rng.uniform(1, 5, size=(2, DH // 2, DW // 2, 1)).astype(
         np.float32)       # off-grid depth exercises the resize to depth_hw
-    a = jinit.CostVolumeInitNet(depth_hw=(DH, DW)).apply(
+    a = jax.jit(jinit.CostVolumeInitNet(depth_hw=(DH, DW)).apply)(
         {"params": p["init_net"]}, jnp.asarray(imgs), jnp.asarray(depth))
     tnet = _load(tinit.CostVolumeInitNet((DH, DW)), sd, "init_net")
     b = tnet(torch.tensor(imgs), torch.tensor(depth))
@@ -92,9 +93,9 @@ def test_cost_volume_init_net_and_vis_encoder(jax_model):
 
     img_feats = rng.normal(size=(2, H // 4, W // 4, 32)).astype(np.float32)
     ray = np.asarray(a)
-    a2 = jinit.DefaultVisEncoder().apply({"params": p["vis_encoder"]},
-                                         jnp.asarray(ray),
-                                         jnp.asarray(img_feats))
+    a2 = jax.jit(jinit.DefaultVisEncoder().apply)(
+        {"params": p["vis_encoder"]}, jnp.asarray(ray),
+        jnp.asarray(img_feats))
     b2 = _load(tinit.DefaultVisEncoder(), sd, "vis_encoder")(
         torch.tensor(ray), torch.tensor(img_feats))
     np.testing.assert_allclose(_np(b2), np.asarray(a2), **TOL)
@@ -111,7 +112,7 @@ def test_mixture_decoder_and_compute_prob(jax_model):
     p, sd = jax_model
     rng = np.random.default_rng(4)
     feats = rng.normal(size=(2, 5, DN, 2, 32)).astype(np.float32)
-    jm, jv, _, ja = jdd.MixtureLogisticsDistDecoder().apply(
+    jm, jv, _, ja = jax.jit(jdd.MixtureLogisticsDistDecoder().apply)(
         {"params": p["dist_decoder"]}, jnp.asarray(feats))
     dec = _load(tdd.MixtureLogisticsDistDecoder(), sd, "dist_decoder")
     tm, tv, ta = dec(torch.tensor(feats))
@@ -142,7 +143,8 @@ def test_mixture_decoder_and_compute_prob(jax_model):
     for x, y in zip(tq, jq):
         np.testing.assert_allclose(_np(x), np.asarray(y), atol=1e-6)
 
-    ja_, jvis, jhit = jdd.compute_prob(jn, jf, jm, jv, None, ja, False)
+    ja_, jvis, jhit = jax.jit(lambda *a: jdd.compute_prob(
+        *a[:4], None, a[4], False))(jn, jf, jm, jv, ja)
     ta_, tvis, thit = tdd.compute_prob(tn, tf, tm, tv, ta)
     for x, y in [(ta_, ja_), (tvis, jvis), (thit, jhit)]:
         np.testing.assert_allclose(_np(x), np.asarray(y), **TOL)
@@ -159,14 +161,15 @@ def test_sampling_and_compositing():
         _np(tro.depth2inv_dists(td, torch.tensor(qdr))),
         np.asarray(jro.depth2inv_dists(jd, jnp.asarray(qdr))), rtol=1e-5)
     hit = rng.uniform(size=(2, 7, DN)).astype(np.float32) ** 4
-    jf = jro.sample_fine_depth(jd, jnp.asarray(hit), jnp.asarray(qdr), DN,
-                               None)
+    jf = jax.jit(lambda *a: jro.sample_fine_depth(*a, DN, None))(
+        jd, jnp.asarray(hit), jnp.asarray(qdr))
     tf = tro.sample_fine_depth(td, torch.tensor(hit), torch.tensor(qdr), DN)
     np.testing.assert_allclose(_np(tf), np.asarray(jf), rtol=1e-5)
 
     density = rng.normal(size=(2, 7, DN)).astype(np.float32)
     colors = rng.uniform(size=(2, 7, DN, 3)).astype(np.float32)
-    a = jro.density2outputs(jnp.asarray(density), jnp.asarray(colors), jd)
+    a = jax.jit(jro.density2outputs)(jnp.asarray(density),
+                                     jnp.asarray(colors), jd)
     b = tro.density2outputs(torch.tensor(density), torch.tensor(colors), td)
     for k in ("hit_prob", "pixel_colors", "render_depth"):
         np.testing.assert_allclose(_np(b[k]), np.asarray(a[k]), rtol=1e-5,
@@ -180,8 +183,8 @@ def _ref_data(p, preset):
     model = JR(height=H, width=W, depth_hw=(DH, DW), depth_sample_num=DN,
                fine_depth_sample_num=DN, **kw)
     info = ge._tiny_data(H, W, DH, DW, rn=8)["ref_imgs_info"]
-    ref = model.apply({"params": p}, info["imgs"], info["mvs_depth"],
-                      method=JR.prepare_ref)
+    ref = jax.jit(lambda *a: model.apply(*a, method=JR.prepare_ref))(
+        {"params": p}, info["imgs"], info["mvs_depth"])
     ref["w2c"] = info["w2c"]
     rng = np.random.default_rng(6)
     coords = np.stack([rng.integers(0, W, (1, 24)),
@@ -189,7 +192,7 @@ def _ref_data(p, preset):
     c2w = np.concatenate([np.eye(3), [[0.1], [0.0], [0.2]]], 1).astype(
         np.float32)
     que_depth, _ = jro.sample_depth(1, 24, DN, 0.5, 15.0, True)
-    pts, qdir = jro.depth2points_spherical(
+    pts, qdir = jax.jit(jro.depth2points_spherical)(
         jnp.asarray(coords), que_depth, jnp.asarray(c2w),
         JM3D.ray_directions(H, W))
     return ({k: np.asarray(v) for k, v in ref.items()}, coords, c2w,
@@ -210,10 +213,18 @@ def test_points_and_projection(jax_model, preset):
     for stride in sorted({1, kw["gather_stride"],
                           kw["gather_stride_fine"] or 1}):
         stride = min(stride, DN // 2)
-        a = jro.project_points_dict(
-            {k: jnp.asarray(v) for k, v in ref.items()}, jnp.asarray(pts),
-            JM3D, que_dir=jnp.asarray(qdir),
-            depth_major=kw["gather_depth_major"], gather_stride=stride)
+        layout = {}
+
+        def project(r, x, q):
+            out = jro.project_points_dict(
+                r, x, JM3D, que_dir=q, depth_major=kw["gather_depth_major"],
+                gather_stride=stride)
+            layout.update({"layout": out.pop("layout")} if "layout" in out
+                          else {})
+            return out
+        a = {**jax.jit(project)({k: jnp.asarray(v) for k, v in ref.items()},
+                                jnp.asarray(pts), jnp.asarray(qdir)),
+             **layout}
         b = tro.project_points_dict(
             {k: torch.tensor(v) for k, v in ref.items()}, torch.tensor(pts),
             TM3D, torch.tensor(qdir), depth_major=kw["gather_depth_major"],
@@ -240,14 +251,14 @@ def test_aggregation_net(jax_model, layout, geometry_only):
            "hit_prob": rng.uniform(size=(*shp, 1)),
            "vis": rng.uniform(size=(*shp, 1))}
     prj = {k: x.astype(np.float32) for k, x in prj.items()}
-    jprj = {k: jnp.asarray(x) for k, x in prj.items()}
-    tprj = {k: torch.tensor(x) for k, x in prj.items()}
-    if layout == "dnr":
-        jprj["layout"] = tprj["layout"] = "dnr"
+    # the layout tag is static: it goes into the traced function, not in
+    # its array arguments
+    tag = {"layout": "dnr"} if layout == "dnr" else {}
+    tprj = {**{k: torch.tensor(x) for k, x in prj.items()}, **tag}
     que_dir = jnp.zeros((qn, rn, DN, 3))
-    jd, jc = jagg.DefaultAggregationNet(
-        n_samples=DN, geometry_only=geometry_only).apply(
-        {"params": p["agg_net"]}, jprj, que_dir)
+    jd, jc = jax.jit(lambda v, x, q: jagg.DefaultAggregationNet(
+        n_samples=DN, geometry_only=geometry_only).apply(v, {**x, **tag}, q))(
+        {"params": p["agg_net"]}, prj, que_dir)
     net = _load(tagg.DefaultAggregationNet(geometry_only=geometry_only),
                 sd, "agg_net")
     td, tc = net(tprj)
@@ -260,7 +271,7 @@ def test_sinusoid_table_and_seq_plain_path(jax_model):
                                   jagg.sinusoid_pos_encoding(DN, 16))
     p, sd = jax_model
     x = np.random.default_rng(8).normal(size=(40, DN, 16)).astype(np.float32)
-    a = jagg._Seq((16, 1), final_act="relu").apply(
+    a = jax.jit(jagg._Seq((16, 1), final_act="relu").apply)(
         {"params": p["agg_net"]["agg_impl"]["out_geometry_fc"]},
         jnp.asarray(x))
     b = _load(tagg._Seq((16, 16, 1), final_act="relu"), sd,

@@ -48,7 +48,8 @@ from panogrf_tpu_torch.train import trainer as ttr
 from panogrf_tpu_torch.utils.from_jax import load_jax_params
 from torch_port_parity import (OUT_TOL, assert_grads_close, f32_uniform,
                                inject_uniform, off_seam_coords,
-                               template_init, to_f64, to_torch)
+                               seeded_renderer_params, template_init, to_f64,
+                               to_torch)
 from torch_port_threads import one_torch_thread  # noqa: F401
 
 H, W, DH, DW, DN, RN = 32, 64, 32, 64, 32, 16
@@ -102,8 +103,7 @@ def mv_step():
               fine_depth_sample_num=DN, gather_depth_major=True,
               use_self_hit_prob=True)
     model = JR(**kw)
-    params = jax.tree.map(np.asarray,
-                          jax.jit(model.init)(jax.random.PRNGKey(0), data))
+    params = seeded_renderer_params(**kw)
     # a positive density bias gives the fine pass density (and gradients)
     # at this random initialisation
     for n in ("agg_net", "fine_agg_net"):

@@ -45,6 +45,7 @@ import ast
 import copy
 import json
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import jax
@@ -78,6 +79,7 @@ from panogrf_tpu_torch.tools import train_depth, train_mono, train_renderer
 from panogrf_tpu_torch.train import depth_trainer as tdt
 from panogrf_tpu_torch.train import trainer as ttr
 from panogrf_tpu_torch.utils import from_jax
+from torch_port_parity import seeded_renderer_params
 from torch_port_threads import one_torch_thread  # noqa: F401
 
 H, W, DH, DW, DN, RN = 32, 64, 32, 64, 8, 16
@@ -178,7 +180,7 @@ def _renderer_case() -> dict:
     kw = dict(height=H, width=W, depth_hw=(DH, DW), depth_sample_num=DN,
               fine_depth_sample_num=DN, gather_depth_major=True)
     jm = JR(**kw)
-    params = _np(jax.jit(jm.init)(jax.random.PRNGKey(0), data))
+    params = seeded_renderer_params(**kw)
     # a positive density bias gives the fine pass density (and gradients)
     # at this random initialisation
     for n in ("agg_net", "fine_agg_net"):
@@ -211,8 +213,8 @@ def _frame_job(case: dict, clr: int) -> tuple:
 @pytest.fixture(scope="module")
 def port_runs(cases):
     """Every port program of this file at 2 ranks in one group, the
-    renderer step and a frame at 4 ranks in another, and the renderer step
-    on one rank in this process."""
+    renderer step and a frame at 4 ranks in another (the two groups at
+    once), and the renderer step on one rank in this process."""
     c = cases
     step = (programs.renderer_steps, dict(model=c["renderer"]["tm"],
                                           batch=c["renderer"]["data"],
@@ -225,11 +227,14 @@ def port_runs(cases):
         model=c["depth"]["tm"], batch=_f64(c["depth"]["batch"]),
         cfg=tdt.DepthTrainConfig(), inputs=("equi",), device="cpu")), step,
         _frame_job(c["renderer"], 1), _frame_job(c["renderer"], 2)]
-    two = run_ranks(programs.run_all, 2, "cpu", (jobs,),
-                    deadline_s=DEADLINE_S)
-    four = run_ranks(programs.run_all, 4, "cpu",
-                     ([step, _frame_job(c["renderer"], 2)],),
-                     deadline_s=DEADLINE_S)
+    # the two groups of processes run side by side
+    with ThreadPoolExecutor(2) as pool:
+        two = pool.submit(run_ranks, programs.run_all, 2, "cpu", (jobs,),
+                          deadline_s=DEADLINE_S)
+        four = pool.submit(run_ranks, programs.run_all, 4, "cpu",
+                           ([step, _frame_job(c["renderer"], 2)],),
+                           deadline_s=DEADLINE_S)
+        two, four = two.result(), four.result()
     one = run_ranks(programs.run_all, 1, "cpu", ([step],))
     return {"bn": dict(zip(("resnet", "conv3d"), two[:2])),
             "depth": two[2], "step": {1: one[0], 2: two[3], 4: four[0]},
@@ -456,9 +461,9 @@ def test_render_image_sharded_matches_jax_and_one_device(ranks, clr, cases,
     if ranks != 2:
         return
     jm, params = case["jm"], case["params"]
-    ref_data = jm.apply(params, jnp.asarray(ref_info["imgs"]),
-                        jnp.asarray(ref_info["mvs_depth"]),
-                        method=JR.prepare_ref)
+    ref_data = jax.jit(lambda *a: jm.apply(*a, method=JR.prepare_ref))(
+        params, jnp.asarray(ref_info["imgs"]),
+        jnp.asarray(ref_info["mvs_depth"]))
     ref_data["w2c"] = jnp.asarray(ref_info["w2c"])
     jrgb = jrender_sharded(jm, params, ref_data, jnp.asarray(q["c2w"]),
                            jnp.asarray(q["depth_range"]),

@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``panogrf_tpu_torch`` imports JAX,
 flax or the JAX package, and its entry points run on CUDA unless the
-caller asks for the CPU."""
+caller asks for the CPU.  It is whole: every module of the JAX package
+and every JAX tool has its port, but for the files ``UNPORTED`` names."""
 
 import pkgutil
 import re
@@ -18,14 +19,26 @@ from panogrf_tpu_torch.renderer import full_render
 from panogrf_tpu_torch.renderer.ft_renderer import NeuralRayFtRenderer
 from panogrf_tpu_torch.renderer.renderer import NeuralRayGenRenderer
 from panogrf_tpu_torch.tools import (bench, bench_train, eval_dirs,
-                                     parity_check, render, render_ft,
-                                     render_mv, train_ft, train_renderer)
+                                     parity_check, profile_honest,
+                                     profile_mvs, profile_render, render,
+                                     render_ft, render_mv, train_ft,
+                                     train_renderer)
 from panogrf_tpu_torch.train import lpips
 from panogrf_tpu_torch.train.trainer import Trainer
 from torch_port_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "panogrf_tpu_torch"
+# JAX package files (relative to ``panogrf_tpu/``) without a port file of
+# the same path, each with where its work went or why it has none
+UNPORTED = {
+    "ops/pallas/__init__.py": "ops/kernels/ (the Pallas kernels' wrappers)",
+    "ops/pallas/fused_mlp.py": "ops/kernels/fused_mlp.py + csrc/fused_mlp.cu",
+    "utils/torch_convert.py": "the port keeps the reference state-dict "
+                              "layout; utils/from_jax.py is the inverse",
+    "utils/observability.py": "no caller in either package: the trainers "
+                              "log through log_fn",
+}
 
 
 def _modules():
@@ -50,11 +63,12 @@ def test_no_source_file_mentions_jax():
     pattern = re.compile(r"import jax|from jax|flax|panogrf_tpu\.")
     offenders = [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")
                  if pattern.search(p.read_text())]
-    assert len(_modules()) >= 76
+    assert len(_modules()) >= 85
     # the depth stack's, the video slice's, depth training's, the
     # multi-view and finetuning slice's, the renderer modes', the
-    # depth-net variants', the data pipeline's, the multi-GPU and the
-    # measurement and evaluation modules are among them
+    # depth-net variants', the data pipeline's, the multi-GPU, the
+    # measurement and evaluation modules and the stage profilers are among
+    # them
     assert {f"panogrf_tpu_torch.{m}" for m in (
         "core.cubemap", "nn.resnet", "nn.fusion", "models.unifuse",
         "models.mvs", "models.depth_stack", "ops.cost_volume",
@@ -72,9 +86,30 @@ def test_no_source_file_mentions_jax():
         "parallel.sharded_train", "parallel.sharded_render",
         "parallel.programs", "tools.bench", "tools.bench_train",
         "tools.eval_dirs", "tools.parity_check", "train.lpips",
-        "utils.roofline")} <= \
-        set(_modules())
+        "utils.roofline", "tools._stage_timer", "tools.profile_honest",
+        "tools.profile_render", "tools.profile_mvs")} <= set(_modules())
     assert not offenders, offenders
+
+
+def test_every_jax_module_and_tool_has_its_port():
+    """Each ``.py`` file of ``panogrf_tpu/`` has the port file of the same
+    path under ``panogrf_tpu_torch/`` (but for ``UNPORTED``), and each JAX
+    tool under ``tools/``, and the root ``bench.py``, has its port under
+    ``panogrf_tpu_torch/tools/``."""
+    jax_pkg = ROOT / "panogrf_tpu"
+    missing = sorted(
+        rel for p in jax_pkg.rglob("*.py")
+        if "__pycache__" not in p.parts
+        and (rel := p.relative_to(jax_pkg).as_posix()) not in UNPORTED
+        and not (PKG / rel).is_file())
+    assert not missing, missing
+    assert all((jax_pkg / rel).is_file() and not (PKG / rel).exists()
+               for rel in UNPORTED)
+    tools = sorted(p.name for p in (ROOT / "tools").glob("*.py")) \
+        + ["bench.py"]
+    assert {"profile_honest.py", "profile_mvs.py", "profile_render.py",
+            "bench.py"} <= set(tools)
+    assert not [t for t in tools if not (PKG / "tools" / t).is_file()]
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
@@ -155,10 +190,13 @@ def test_entry_points_default_to_cuda(monkeypatch):
         small + ["--rays", "8", "--device", "cpu"]))
     assert ft.model.directions.device.type == "cpu"
 
-    # the measurement and evaluation tools and LPIPS: CUDA unless asked
+    # the measurement and evaluation tools, the stage profilers and LPIPS:
+    # CUDA unless asked
     for tool, argv in ((bench, []), (bench_train, []),
                        (eval_dirs, ["--dir_gt", ".", "--dir_pr", "."]),
-                       (parity_check, ["--renderer-pth", "model.pth"])):
+                       (parity_check, ["--renderer-pth", "model.pth"]),
+                       (profile_honest, []), (profile_render, []),
+                       (profile_mvs, [])):
         with pytest.raises(RuntimeError, match="CUDA"):
             tool.main(argv)
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -40,6 +40,7 @@ from panogrf_tpu_torch.train import losses as tl
 from panogrf_tpu_torch.train import lr as tlr
 from panogrf_tpu_torch.train import trainer as ttr
 from panogrf_tpu_torch.utils.from_jax import load_jax_params
+from torch_port_parity import seeded_renderer_params
 from torch_port_threads import one_torch_thread  # noqa: F401
 
 H, W, DH, DW, DN, RN = 32, 64, 32, 64, 32, 16
@@ -140,8 +141,7 @@ def jax_step():
     kw = dict(height=H, width=W, depth_hw=(DH, DW), depth_sample_num=DN,
               fine_depth_sample_num=DN, gather_depth_major=True)
     model = JR(**kw)
-    params = jax.tree.map(np.asarray,
-                          jax.jit(model.init)(jax.random.PRNGKey(0), data))
+    params = seeded_renderer_params(**kw)
     # a positive density bias gives the fine pass density (and gradients)
     # at this random initialisation
     for n in ("agg_net", "fine_agg_net"):
@@ -218,8 +218,7 @@ def test_fine_depth_use_all_and_flat_sampling(monkeypatch):
     for flags, fine in [(dict(fine_depth_use_all=True), 16),
                         (dict(use_hierarchical_sampling=False), None)]:
         jm = JR(**kw, **flags)
-        params = jax.tree.map(np.asarray, jax.jit(jm.init)(
-            jax.random.PRNGKey(0), data))
+        params = seeded_renderer_params(**kw, **flags)
         key = jax.random.PRNGKey(2)
         want = jax.jit(lambda p, d, k: jm.apply(p, d, rng=k))(params, data,
                                                                key)
