@@ -79,7 +79,13 @@ the wrapper's host cost, then drives the port's two paths at full width
   chunk and at 4096 rays with ``--serving``, ``tools.profile_render`` and
   ``tools.profile_mvs`` at their defaults (every stage finite and above
   0, its exact ``mlp2`` launches), and the ``agg_net`` and
-  ``attn_tail`` stages on the card against the CPU at 256 rays.
+  ``attn_tail`` stages on the card against the CPU at 256 rays;
+* checkpoint input: the JAX package's orbax checkpoints committed under
+  ``tests/data/orbax/`` read by ``utils/orbax_read`` (every leaf's SHA-256
+  against its ``expected.json``, the reader's MB/s on each fixture on the
+  host over five reads), the render CLI's eval frame at 512x1024 from the JAX trainer's
+  renderer checkpoint (finite, in [0, 1], its ``mlp2`` launches), and no
+  module of JAX, orbax, tensorstore or zstandard loaded.
 
 Each path checks that it went through its kernels.  Each phase prints one
 JSON line; any failure raises, so the process exits non-zero.  The last
@@ -145,6 +151,7 @@ from panogrf_tpu_torch.tools import (profile_honest, profile_mvs,
 from panogrf_tpu_torch.train import depth_trainer
 from panogrf_tpu_torch.train import lpips as tlpips
 from panogrf_tpu_torch.train import trainer as trainer_mod
+from panogrf_tpu_torch.utils import orbax_read
 
 H, W, DH, DW, RFN = 512, 1024, 256, 512, 2
 TRAIN_CFG = "configs/gen/neuray_gen_cv_erp_mono_stereo_uniform_512x1024.yaml"
@@ -3249,9 +3256,121 @@ def profile_tools_group() -> dict:
     return out
 
 
+ORBAX_FIXTURES = Path("tests/data/orbax")
+ORBAX_OUT = "data/chip_smoke_orbax"
+FOREIGN = ("jax", "jaxlib", "flax", "orbax", "tensorstore", "zstandard")
+
+
+def _leaf(tree, route: str):
+    for k in route.split("/"):
+        tree = tree[int(k)] if isinstance(tree, list) else tree[k]
+    return np.array(tree, order="C")
+
+
+def orbax_reads(card: str) -> None:
+    """Each committed checkpoint read five times on the host: every leaf's
+    shape, dtype and SHA-256 against its ``expected.json``; seconds per
+    read, the decoded and stored MB and the reader's MB/s on that fixture
+    (decoded bytes over the median read; a fixture's compression sets it,
+    so neither is the rate for a trained float32 checkpoint)."""
+    import hashlib
+    for name in ("renderer", "arrays"):
+        path = ORBAX_FIXTURES / name
+        rows = json.loads((ORBAX_FIXTURES / f"{name}.expected.json")
+                          .read_text())
+        seconds = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            tree = orbax_read.read_tree(path)
+            seconds.append(time.perf_counter() - t0)
+        decoded = 0
+        for route, shape, dtype, sha in rows:
+            a = _leaf(tree, route)
+            decoded += a.nbytes
+            if (list(a.shape), a.dtype.str, hashlib.sha256(
+                    a.tobytes()).hexdigest()) != (shape, dtype, sha):
+                raise AssertionError(f"orbax {name}: leaf {route} differs "
+                                     f"from its expected.json")
+        stored = sum(f.stat().st_size for f in path.rglob("*")
+                     if f.is_file())
+        median = statistics.median(seconds)
+        emit({"phase": "orbax_read", "checkpoint": name,
+              "leaves": len(rows), "digests_match": True,
+              "decoded_mb": decoded / 1e6, "stored_mb": stored / 1e6,
+              "seconds": seconds, "median_s": median,
+              "mb_per_s": decoded / 1e6 / median,
+              "stored_mb_per_s": stored / 1e6 / median, "card": card})
+
+
+def orbax_render() -> int:
+    """The render CLI's eval frame at 512x1024 (serving preset, 4096-ray
+    chunks, the scene's true depth) from the JAX trainer's renderer
+    checkpoint: the float frame finite and in [0, 1], the metrics finite,
+    160 mlp2 launches, all ``lanes``, no mlp3.  Returns the launches."""
+    chunk = 4096
+    per_frame = H * W // chunk + (H // 2) * (W // 2) // chunk
+    argv = ["--ckpt", str(ORBAX_FIXTURES / "renderer"), "--height", str(H),
+            "--width", str(W), "--depth-height", str(DH), "--depth-width",
+            str(DW), "--preset", "serving", "--chunk", str(chunk), "--num",
+            "1", "--no-skip", "--out", ORBAX_OUT]
+    frames = {}
+    save = render_tool.save_image
+
+    def keep(path, img):
+        frames[Path(path).name] = np.asarray(img)
+        save(path, img)
+    render_tool.save_image = keep
+    fused_mlp.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        summary = render_tool.main(argv)
+    finally:
+        render_tool.save_image = save
+    seconds = time.perf_counter() - t0
+    count, count3 = fused_mlp.MLP2_LAUNCHES, fused_mlp.MLP3_LAUNCHES
+    variants = dict(fused_mlp.VARIANT_LAUNCHES)
+    rgb = frames.get("0-nr_fine.png")
+    ok = (rgb is not None and rgb.shape == (H, W, 3)
+          and bool(np.isfinite(rgb).all()) and rgb.min() >= 0
+          and rgb.max() <= 1
+          and all(np.isfinite(v) for v in summary["mean"].values()))
+    emit({"phase": "orbax_render_cli", "ckpt": argv[1], "hw": [H, W],
+          "preset": "serving", "chunk": chunk, **summary["mean"],
+          "frame_min": None if rgb is None else float(rgb.min()),
+          "frame_max": None if rgb is None else float(rgb.max()),
+          "frame_mean": None if rgb is None else float(rgb.mean()),
+          "mlp2_launches": count, "mlp3_launches": count3,
+          "variant_launches": variants, "cli_seconds": seconds})
+    if not ok:
+        raise AssertionError(f"orbax_render_cli: frame "
+                             f"{None if rgb is None else rgb.shape}, "
+                             f"{summary['mean']}")
+    if count != per_frame or count3:
+        raise AssertionError(f"orbax_render_cli: mlp2 launched {count} "
+                             f"times, expected {per_frame}; mlp3 {count3}")
+    assert_specialised("orbax_render_cli", count, variants)
+    return count
+
+
+def orbax_group() -> int:
+    """Checkpoint input: ``orbax_reads``, ``orbax_render``, and no module
+    of JAX, orbax, tensorstore or zstandard in this process.  Returns the
+    render CLI's mlp2 launches."""
+    t0 = time.perf_counter()
+    orbax_reads(gpu_name_and_power())
+    launches = orbax_render()
+    foreign = sorted(m for m in sys.modules if m.split(".")[0] in FOREIGN)
+    emit({"phase": "orbax", "foreign_modules": foreign,
+          "group_seconds": time.perf_counter() - t0})
+    if foreign:
+        raise AssertionError(f"orbax: modules loaded: {foreign[:8]}")
+    return launches
+
+
 PHASES = ("kernels", "serving", "training", "depth_stack",
           "depth_training", "render_cli", "video", "mv_ft", "modes",
-          "depth_variants", "data", "parallel", "measure", "profile_tools")
+          "depth_variants", "data", "parallel", "measure", "profile_tools",
+          "orbax")
 
 
 def main(argv=None) -> int:
@@ -3365,6 +3484,8 @@ def main(argv=None) -> int:
         # each run asserts its own mlp3 count of 0
         for path, n in profile_tools_group().items():
             row[f"launches_profile_{path}"] = n
+    if "orbax" in phases:
+        row["launches_orbax_render_cli_eval"] = orbax_group()
     # no path of either package calls mlp3: the main paths launch it 0 times
     # (render_cli asserts its own 0)
     if row3["launches"] != 0:

@@ -10,8 +10,10 @@ ground-truth depth is read.  The stack runs in eval mode under
 ``.pt``, ``.tar``, ``.ckpt``) straight into the modules, with no
 conversion step: released reference checkpoints and the port's depth
 trainers' ``checkpoint_{step}.pth`` files (an MVS checkpoint carries its
-frozen mono net as ``d_net.*`` and loads alone).  Orbax directories (the
-JAX depth trainer's output) are not readable by the port.
+frozen mono net as ``d_net.*`` and loads alone).  It also reads the JAX
+depth trainers' orbax checkpoint directories (``{"params",
+"batch_stats"}``, through ``utils/orbax_read`` and ``utils/from_jax``;
+such an MVS checkpoint holds no mono net).
 """
 
 from __future__ import annotations
@@ -26,7 +28,9 @@ from panogrf_tpu_torch.data.imgs_info import pose_w2c
 from panogrf_tpu_torch.models.mvs import MVSDepthModel
 from panogrf_tpu_torch.models.unifuse import UniFuse, normalize_imagenet
 from panogrf_tpu_torch.nn.blocks import init_parameters_, resize_linear
+from panogrf_tpu_torch.utils import from_jax
 from panogrf_tpu_torch.utils.device import resolve_device
+from panogrf_tpu_torch.utils.orbax_read import is_orbax_dir, read_tree
 
 CKPT_SUFFIXES = (".pt", ".pth", ".tar", ".ckpt")
 
@@ -111,15 +115,18 @@ def init_depth_stack(seed: int = 0, mono_hw: tuple = (512, 1024),
 
 
 def read_checkpoint(path) -> dict:
-    """A reference-layout checkpoint file's state dict: unwrapped from
-    ``model_state_dict``/``state_dict``/``model``, ``module.`` prefixes
-    stripped."""
+    """A depth net's state dict: from a reference-layout checkpoint file
+    (unwrapped from ``model_state_dict``/``state_dict``/``model``,
+    ``module.`` prefixes stripped), or from an orbax checkpoint directory
+    of the JAX depth trainers, whose net is told from its tree."""
     p = pathlib.Path(path)
+    if p.is_dir() and is_orbax_dir(p):
+        return orbax_depth_state_dict(p)
     if p.is_dir() or p.suffix not in CKPT_SUFFIXES:
         raise ValueError(
             f"{path}: not readable by the port (it reads reference-layout "
-            f"{'/'.join(CKPT_SUFFIXES)} files; orbax checkpoint directories "
-            "of the JAX depth trainer are not ported)")
+            f"{'/'.join(CKPT_SUFFIXES)} files and orbax checkpoint "
+            "directories)")
     raw = torch.load(p, map_location="cpu", weights_only=False)
     for k in ("model_state_dict", "state_dict", "model"):
         if isinstance(raw, dict) and k in raw:
@@ -127,6 +134,39 @@ def read_checkpoint(path) -> dict:
             break
     return {(k[len("module."):] if k.startswith("module.") else k): v
             for k, v in raw.items() if hasattr(v, "shape")}
+
+
+def _depth_converter(p: dict):
+    """The ``utils/from_jax`` converter of a JAX depth net's params, told
+    from their top-level keys (None for a tree no converter takes)."""
+    if "feature_net" in p and "decoders1" in p:
+        return from_jax.mvs_state_dict
+    if "enc0" in p.get("unet", {}):
+        return from_jax.fnet_state_dict
+    if "equi_encoder" in p and ("cube_encoder" in p or "tp_encoder" in p):
+        return from_jax.unifuse_state_dict           # UniFuse, ERP+TP
+    if "equi_encoder" in p:
+        return from_jax.equi_depth_state_dict
+    if "cube_encoder" in p:
+        return from_jax.cube_depth_state_dict
+    if "ResidualBlock_0" in p and "WrapConv_0" in p:
+        return from_jax.uncert_head_state_dict
+    return None
+
+
+def orbax_depth_state_dict(path) -> dict:
+    """The orbax directory ``path`` of a JAX depth trainer (``{"params",
+    "batch_stats"}``: UniFuse, ERP+TP, Equi, Cube, the MVS net, FNET or
+    the uncertainty head) -> the port's state dict of CPU tensors."""
+    tree = read_tree(path)
+    params = tree.get("params")
+    convert = _depth_converter(params) if isinstance(params, dict) else None
+    if convert is None:
+        keys = sorted(params) if isinstance(params, dict) else None
+        raise ValueError(f"{path}: not a depth net's orbax tree (top-level "
+                         f"keys {sorted(tree)}, params keys {keys})")
+    return convert({"params": params,
+                    "batch_stats": tree.get("batch_stats", {})})
 
 
 def load_reference_state(module: nn.Module, sd: dict) -> None:

@@ -24,8 +24,9 @@ diner...``, under DINER's depth-guided sampling (no fine heads: evaluate
 DINER modes only then).  ``--count-jitter`` draws the fine sample count
 of each step from its list (duplicates weight the draw).  ``--ckpt`` and
 ``--save-ckpt`` read and write a renderer ``model.pth`` in the reference
-layout.  It runs on the CUDA device and raises without one unless
-``--device cpu`` is given.
+layout; ``--ckpt`` also reads an orbax directory of the JAX trainer.  It
+runs on the CUDA device and raises without one unless ``--device cpu`` is
+given.
 """
 
 from __future__ import annotations
@@ -95,7 +96,9 @@ MODE_CFGS = {
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--ckpt", default=None,
+                    help="renderer model.pth, or an orbax directory of "
+                         "the JAX trainer")
     ap.add_argument("--steps", type=int, default=300)
     ap.add_argument("--height", type=int, default=128)
     ap.add_argument("--width", type=int, default=256)

@@ -12,9 +12,9 @@ net on its prior (``mvs``).  It prints the sin-weighted ERP metric table
 of both (``train/metrics.depth_metrics_erp``, mean over the scenes) as
 JSON.  Weights come from ``train_mono``/``train_depth`` checkpoint files
 (``.pth``; the mono net from ``--mono-ckpt``, else from the MVS file's
-``d_net.*``, else random), as ``models/depth_stack.load_depth_stack``
-reads them.  It runs on the CUDA device and raises without one unless
-``--device cpu`` is given.
+``d_net.*``, else random) or the JAX depth trainers' orbax directories,
+as ``models/depth_stack.load_depth_stack`` reads them.  It runs on the
+CUDA device and raises without one unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -39,8 +39,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--height", type=int, default=256)
     ap.add_argument("--width", type=int, default=512)
     ap.add_argument("--m3d-dist", type=float, default=1.0)
-    ap.add_argument("--mono-ckpt", default=None)
-    ap.add_argument("--mvs-ckpt", default=None)
+    ap.add_argument("--mono-ckpt", default=None,
+                    help="UniFuse checkpoint file, or an orbax directory "
+                         "of the JAX trainer")
+    ap.add_argument("--mvs-ckpt", default=None,
+                    help="MVS checkpoint file, or an orbax directory of "
+                         "the JAX trainer")
     ap.add_argument("--min-depth", type=float, default=0.1)
     ap.add_argument("--max-depth", type=float, default=10.0)
     ap.add_argument("--device", default="cuda",

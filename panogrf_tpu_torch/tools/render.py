@@ -23,12 +23,12 @@ images are saved as ``.npy``.  Frames already on disk are skipped unless
 The reference views' depth comes from the scenes' true depth, or, with
 ``--mono-ckpt``/``--mvs-ckpt``/``--wo-stereo``/``--depth-stack``, from the
 frozen depth stack (UniFuse, then the 360-degree MVS net): no true depth
-is read then.  Checkpoints are reference-layout files; without
-``--mvs-ckpt`` the stack is UniFuse alone, as in the JAX tool, and
-``--depth-stack`` without checkpoints runs it with random weights.
-``--ckpt`` is a renderer
-checkpoint in the reference ``model.pth`` layout, which the port's
-trainer writes.
+is read then.  Checkpoints are reference-layout files or the JAX depth
+trainers' orbax directories; without ``--mvs-ckpt`` the stack is UniFuse
+alone, as in the JAX tool, and ``--depth-stack`` without checkpoints runs
+it with random weights.  ``--ckpt`` is a renderer checkpoint in the
+reference ``model.pth`` layout, which the port's trainer writes, or an
+orbax directory of the JAX trainer (``data/model/<name>/latest``).
 
 It runs on the CUDA device and raises without one unless ``--device cpu``
 is given.  ``--mesh N`` renders each eval frame with its rays split over N
@@ -73,7 +73,9 @@ from panogrf_tpu_torch.utils.device import resolve_device, synchronize
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--ckpt", default=None,
+                    help="renderer model.pth, or an orbax directory of "
+                         "the JAX trainer")
     ap.add_argument("--num", type=int, default=2)
     ap.add_argument("--height", type=int, default=256)
     ap.add_argument("--width", type=int, default=512)
@@ -104,9 +106,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--chunk", type=int, default=0,
                     help="rays per chunk pass (0 = the preset's)")
     ap.add_argument("--mono-ckpt", default=None,
-                    help="UniFuse checkpoint (reference-layout file)")
+                    help="UniFuse checkpoint (reference-layout file, or "
+                         "an orbax directory of the JAX trainer)")
     ap.add_argument("--mvs-ckpt", default=None,
-                    help="MVS checkpoint (reference-layout file)")
+                    help="MVS checkpoint (reference-layout file, or an "
+                         "orbax directory of the JAX trainer)")
     ap.add_argument("--wo-stereo", action="store_true",
                     help="mono-only depth: skip the MVS net")
     ap.add_argument("--depth-stack", action="store_true",

@@ -14,9 +14,10 @@ references at their true depth) and scored against the faces that
 renders in chunks of 4096 rays, which only blocks the work.  Writes
 ``<i>-face<f>-pred.npy`` and ``metric.txt`` (the mean PSNR / SSIM /
 WS-PSNR) under ``--out``.  ``--ckpt`` is a renderer ``model.pth`` in the
-reference layout, which the port's training CLI writes; without it the
-weights are random.  With ``--shards`` the scenes are the first
-``--num`` samples of a shard directory; where they carry cube faces
+reference layout, which the port's training CLI writes, or an orbax
+directory of the JAX trainer; without it the weights are random.  With
+``--shards`` the scenes are the first ``--num`` samples of a shard
+directory; where they carry cube faces
 (``prepare_data --cubes``, imported reference data) the stored query
 faces are the ground truth and their stored poses ``[rots_cubes |
 trans_cubes]`` the face cameras, with the intrinsics of the stored face
@@ -51,7 +52,9 @@ CHUNK = 4096
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--ckpt", default=None,
+                    help="renderer model.pth, or an orbax directory of "
+                         "the JAX trainer")
     ap.add_argument("--num", type=int, default=1)
     ap.add_argument("--height", type=int, default=256)
     ap.add_argument("--width", type=int, default=512)

@@ -5,7 +5,8 @@
         [--inter-num K] [--chunk C] [--out DIR] [--device cpu]
 
 Port of the repo's ``tools/render_ft.py``.  It reads the ``model.pth``
-that ``tools.train_ft`` writes, takes the number of views and the ray
+that ``tools.train_ft`` writes (or the JAX ``tools/train_ft.py``'s orbax
+``ft_latest`` directory), takes the number of views and the ray
 features' size from its ``ray_feats.{i}`` (1, F, fh, fw), rebuilds the
 scene from ``--scene-seed`` (the train_ft run's), encodes the references
 once and renders through ``full_render.render_image``, ``--chunk`` rays
@@ -42,7 +43,8 @@ from panogrf_tpu_torch.utils.device import resolve_device, synchronize
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ckpt", required=True,
-                    help="model.pth written by tools.train_ft")
+                    help="model.pth written by tools.train_ft, or the "
+                         "JAX train_ft's orbax ft_latest directory")
     ap.add_argument("--height", type=int, default=256)
     ap.add_argument("--width", type=int, default=512)
     ap.add_argument("--m3d-dist", type=float, default=0.5)

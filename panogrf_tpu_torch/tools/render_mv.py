@@ -12,9 +12,10 @@ through ``full_render.render_image`` (``--chunk`` rays per pass, float32,
 the renderer's exact flags), and ``<i>-nr_fine.png``, ``<i>-gt.png`` and
 ``metric.txt`` (the mean PSNR / SSIM / WS-PSNR and seconds per frame)
 are written under ``--out``.  ``--ckpt`` is a renderer ``model.pth`` in
-the reference layout, which the port's training CLI writes; without it
-the weights are random.  It runs on the CUDA device and raises without
-one unless ``--device cpu`` is given.
+the reference layout, which the port's training CLI writes, or an orbax
+directory of the JAX trainer; without it the weights are random.  It
+runs on the CUDA device and raises without one unless ``--device cpu``
+is given.
 """
 
 from __future__ import annotations
@@ -41,7 +42,9 @@ from panogrf_tpu_torch.utils.device import resolve_device, synchronize
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--ckpt", default=None,
+                    help="renderer model.pth, or an orbax directory of "
+                         "the JAX trainer")
     ap.add_argument("--views", type=int, default=5)
     ap.add_argument("--que-idx", type=int, default=2,
                     help="query view index (the middle one by default)")

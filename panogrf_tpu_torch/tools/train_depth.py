@@ -25,7 +25,8 @@ the single-UNet ``FNetDepthModel`` instead, on views 0 and 1 with
 ``--hypotheses`` inverse-uniform depths and no mono prior.
 
 ``--mono-ckpt`` is a mono checkpoint file of ``train_mono`` (or any
-reference-layout UniFuse file, or an MVS file's ``d_net.*``); without it
+reference-layout UniFuse file, an MVS file's ``d_net.*``, or an orbax
+directory of the JAX mono trainer); without it
 the prior has random weights.  Checkpoints land in
 ``data/depth_model/<name>/checkpoint_<step>.pth`` with the MVS net's
 prior under ``d_net.*``.  The run resumes from the newest checkpoint of
@@ -87,7 +88,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="train on this shard directory's samples instead "
                          "of procedural scenes")
     ap.add_argument("--mono-ckpt", default=None,
-                    help="frozen mono prior: a train_mono checkpoint file")
+                    help="frozen mono prior: a train_mono checkpoint file, "
+                         "or an orbax directory of the JAX trainer")
     ap.add_argument("--m3d-dist", type=float, default=1.0)
     ap.add_argument("--lr", type=float, default=1e-4)
     ap.add_argument("--name", default="mvs_run")

@@ -9,8 +9,9 @@
 Port of the repo's ``tools/train_ft.py``.  The scene is one procedural
 3-view sample (seed ``--scene-seed``).  The ft renderer starts from a
 generalizable renderer (``--gen-ckpt``, a ``model.pth`` the training CLI
-writes, else random weights): its ray features are the gen init net's
-output on the reference views [0, 2] at the scene's true depth, the
+writes or an orbax directory of the JAX trainer, else random weights):
+its ray features are the gen init net's output on the reference views
+[0, 2] at the scene's true depth, the
 other weights copy over by name.  Each step draws the query view among
 the two references and ``--rays`` random rays, and takes one Adam step
 on the render loss, with two parameter groups at constant learning
@@ -64,7 +65,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="ft recipe yaml; flags given on the command line "
                          "win")
     ap.add_argument("--gen-ckpt", default=None,
-                    help="generalizable renderer model.pth")
+                    help="generalizable renderer model.pth, or an orbax "
+                         "directory of the JAX trainer")
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--height", type=int, default=256)
     ap.add_argument("--width", type=int, default=512)

@@ -95,9 +95,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "the default) or the frozen depth stack's "
                          "prediction ('stack', implied by the next three)")
     ap.add_argument("--mono-ckpt", default=None,
-                    help="UniFuse checkpoint (reference-layout file)")
+                    help="UniFuse checkpoint (reference-layout file, or "
+                         "an orbax directory of the JAX trainer)")
     ap.add_argument("--mvs-ckpt", default=None,
-                    help="MVS checkpoint (reference-layout file)")
+                    help="MVS checkpoint (reference-layout file, or an "
+                         "orbax directory of the JAX trainer)")
     ap.add_argument("--wo-stereo", action="store_true",
                     help="mono-only stack depth: skip the MVS net")
     ap.add_argument("--shards", default=None,

@@ -43,6 +43,8 @@ from panogrf_tpu_torch.parallel.mesh import (RAY_AXIS, Mesh,
 from panogrf_tpu_torch.renderer.render_ops import RayShard
 from panogrf_tpu_torch.train.losses import NAME2LOSS, total_loss
 from panogrf_tpu_torch.train.lr import NAME2LR
+from panogrf_tpu_torch.utils import from_jax
+from panogrf_tpu_torch.utils.orbax_read import read_tree
 
 ADAM_BETAS, ADAM_EPS = (0.9, 0.999), 1e-8
 
@@ -274,9 +276,20 @@ class Trainer:
 
 def load_checkpoint_params(path) -> dict:
     """The network state dict of a ``model.pth`` checkpoint (the layout
-    ``Trainer.save`` writes and the reference trainer writes), or of a bare
-    state dict saved with ``torch.save``."""
-    raw = torch.load(Path(path), map_location="cpu", weights_only=False)
+    ``Trainer.save`` writes and the reference trainer writes), of a bare
+    state dict saved with ``torch.save``, or of an orbax checkpoint
+    directory of the JAX package: ``Trainer.save``'s full state
+    (``state.params``), a params-only tree, or ``tools/train_ft.py``'s
+    ft renderer (``ray_feats`` among its params)."""
+    path = Path(path)
+    if path.is_dir():
+        tree = read_tree(path)
+        params = tree["state"]["params"] if "state" in tree else tree
+        inner = params.get("params", params)
+        if "ray_feats" in inner:
+            return from_jax.ft_renderer_state_dict(params)
+        return from_jax.renderer_state_dict(params)
+    raw = torch.load(path, map_location="cpu", weights_only=False)
     if isinstance(raw, dict) and "network_state_dict" in raw:
         raw = raw["network_state_dict"]
     return {k: v for k, v in raw.items() if hasattr(v, "shape")}

@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``panogrf_tpu_torch`` imports JAX,
-flax or the JAX package, and its entry points run on CUDA unless the
-caller asks for the CPU.  It is whole: every module of the JAX package
-and every JAX tool has its port, but for the files ``UNPORTED`` names."""
+flax, the JAX package, orbax, tensorstore or zstandard, and its entry
+points run on CUDA unless the caller asks for the CPU.  It is whole:
+every module of the JAX package and every JAX tool has its port, but for
+the files ``UNPORTED`` names."""
 
 import pkgutil
 import re
@@ -51,7 +52,8 @@ def test_every_module_imports_without_jax():
             f"for m in {_modules()!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'panogrf_tpu'))\n"
+            "('jax', 'jaxlib', 'flax', 'panogrf_tpu', 'orbax', "
+            "'tensorstore', 'zstandard'))\n"
             "print(len(sys.modules), bad)\n"
             "sys.exit(1 if bad else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -60,15 +62,16 @@ def test_every_module_imports_without_jax():
 
 
 def test_no_source_file_mentions_jax():
-    pattern = re.compile(r"import jax|from jax|flax|panogrf_tpu\.")
+    pattern = re.compile(r"import jax|from jax|flax|panogrf_tpu\.|"
+                         r"(import|from) (orbax|tensorstore|zstandard)")
     offenders = [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")
                  if pattern.search(p.read_text())]
     assert len(_modules()) >= 85
     # the depth stack's, the video slice's, depth training's, the
     # multi-view and finetuning slice's, the renderer modes', the
     # depth-net variants', the data pipeline's, the multi-GPU, the
-    # measurement and evaluation modules and the stage profilers are among
-    # them
+    # measurement and evaluation modules, the stage profilers and the
+    # orbax checkpoint reader are among them
     assert {f"panogrf_tpu_torch.{m}" for m in (
         "core.cubemap", "nn.resnet", "nn.fusion", "models.unifuse",
         "models.mvs", "models.depth_stack", "ops.cost_volume",
@@ -87,7 +90,8 @@ def test_no_source_file_mentions_jax():
         "parallel.programs", "tools.bench", "tools.bench_train",
         "tools.eval_dirs", "tools.parity_check", "train.lpips",
         "utils.roofline", "tools._stage_timer", "tools.profile_honest",
-        "tools.profile_render", "tools.profile_mvs")} <= set(_modules())
+        "tools.profile_render", "tools.profile_mvs", "utils.zstd",
+        "utils.ocdbt", "utils.orbax_read")} <= set(_modules())
     assert not offenders, offenders
 
 
