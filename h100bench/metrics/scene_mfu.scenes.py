@@ -1,0 +1,13 @@
+"""FLOPs of one scene as the reference counts them (the stack and
+``prepare_ref`` under ``torch.utils.flop_counter``) over the window's
+time per scene, as a share of the float32 peak."""
+
+from h100bench import roofline
+
+
+def read(ctx):
+    flops = ctx.driver.flops_per_item
+    if not flops or "scene_ms" not in ctx.e2e:
+        return None
+    return 100.0 * flops / (ctx.e2e["scene_ms"] * 1e-3
+                            * roofline.PEAK_FLOPS["float32"])
