@@ -1,0 +1,9 @@
+"""Device time per frame of the port's ``panogrf.render.gather`` spans in the
+profiled sub-window: ``project_points_dict`` of every coarse and fine
+chunk."""
+
+from h100bench import port_spans
+
+
+def read(ctx):
+    return port_spans.ms_per_unit(ctx, "panogrf.render.gather")

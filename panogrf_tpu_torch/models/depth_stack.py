@@ -31,6 +31,7 @@ from panogrf_tpu_torch.nn.blocks import init_parameters_, resize_linear
 from panogrf_tpu_torch.utils import from_jax
 from panogrf_tpu_torch.utils.device import resolve_device
 from panogrf_tpu_torch.utils.orbax_read import is_orbax_dir, read_tree
+from panogrf_tpu_torch.utils.spans import span
 
 CKPT_SUFFIXES = (".pt", ".pth", ".tar", ".ckpt")
 
@@ -76,24 +77,26 @@ class DepthStack(nn.Module):
             ``mono_depth`` (rfn, mh, mw, 1) and, when it predicts
             uncertainty, ``mvs_uncert``.
         """
-        dh, dw = self.depth_hw
-        mono = run_mono(self.mono_model, ref_imgs, self.mono_hw)
-        if self.mvs_model is None:
-            depth = resize_linear(mono["pred_depth"], (dh, dw), axes=(1, 2))
-            return {"mvs_depth": torch.clamp(depth, min=0.0)}
-        # (B, 2, ...) with index 0 = src, 1 = ref
-        panos = torch.stack([resize_linear(src_imgs, (dh, dw), axes=(1, 2)),
-                             resize_linear(ref_imgs, (dh, dw), axes=(1, 2))],
-                            1)
-        rots = torch.stack([src_w2c[:, :, :3], ref_w2c[:, :, :3]], 1)
-        trans = torch.stack([src_w2c[:, :, 3], ref_w2c[:, :, 3]], 1)
-        out = self.mvs_model(panos, rots, trans, mono["pred_depth"],
-                             mono.get("mono_feat"))
-        ret = {"mvs_depth": torch.clamp(out["depth"], min=0.0),
-               "mono_depth": mono["pred_depth"]}
-        if "pred_final" in out:
-            ret["mvs_uncert"] = out["pred_final"][..., 1:]
-        return ret
+        with span("stack"):
+            dh, dw = self.depth_hw
+            mono = run_mono(self.mono_model, ref_imgs, self.mono_hw)
+            if self.mvs_model is None:
+                depth = resize_linear(mono["pred_depth"], (dh, dw),
+                                      axes=(1, 2))
+                return {"mvs_depth": torch.clamp(depth, min=0.0)}
+            # (B, 2, ...) with index 0 = src, 1 = ref
+            panos = torch.stack(
+                [resize_linear(src_imgs, (dh, dw), axes=(1, 2)),
+                 resize_linear(ref_imgs, (dh, dw), axes=(1, 2))], 1)
+            rots = torch.stack([src_w2c[:, :, :3], ref_w2c[:, :, :3]], 1)
+            trans = torch.stack([src_w2c[:, :, 3], ref_w2c[:, :, 3]], 1)
+            out = self.mvs_model(panos, rots, trans, mono["pred_depth"],
+                                 mono.get("mono_feat"))
+            ret = {"mvs_depth": torch.clamp(out["depth"], min=0.0),
+                   "mono_depth": mono["pred_depth"]}
+            if "pred_final" in out:
+                ret["mvs_uncert"] = out["pred_final"][..., 1:]
+            return ret
 
 
 def init_depth_stack(seed: int = 0, mono_hw: tuple = (512, 1024),

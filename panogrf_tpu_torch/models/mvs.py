@@ -34,6 +34,7 @@ from panogrf_tpu_torch.nn.blocks import (ConvBlock2, CostRegNet, UNet3D,
                                          resize_linear)
 from panogrf_tpu_torch.nn.erp_tp import ENCODERS
 from panogrf_tpu_torch.ops.cost_volume import batched_sweep_cost
+from panogrf_tpu_torch.utils.spans import span
 
 
 def magnet_k_list(n_samples: int, sampling_range: float) -> np.ndarray:
@@ -154,33 +155,35 @@ class MVSDepthModel(nn.Module):
         feats = feats.reshape(b, v, h4, w4, cdim)
         ref_feats = feats[:, 1]
 
-        mu4 = resize_linear(mono_depth, (h4, w4), axes=(1, 2))
-        if self.magnet_num_samples > 0:
-            ks = magnet_k_list(self.magnet_num_samples,
-                               self.magnet_sampling_range)
-            sigma = self.fixed_sigma
-            if mono_sigma is not None:
-                sigma = torch.clamp(resize_linear(mono_sigma, (h4, w4),
-                                                  axes=(1, 2)),
-                                    min=self.basic_sigma)
-        else:
-            ks, sigma = [], self.fixed_sigma
-        dvol = build_depth_hypotheses(mu4, ks, self.num_hypotheses,
-                                      self.min_depth, self.max_depth, sigma,
-                                      self.uniform_in_depth)
+        with span("mvs.sweep"):
+            mu4 = resize_linear(mono_depth, (h4, w4), axes=(1, 2))
+            if self.magnet_num_samples > 0:
+                ks = magnet_k_list(self.magnet_num_samples,
+                                   self.magnet_sampling_range)
+                sigma = self.fixed_sigma
+                if mono_sigma is not None:
+                    sigma = torch.clamp(resize_linear(mono_sigma, (h4, w4),
+                                                      axes=(1, 2)),
+                                        min=self.basic_sigma)
+            else:
+                ks, sigma = [], self.fixed_sigma
+            dvol = build_depth_hypotheses(mu4, ks, self.num_hypotheses,
+                                          self.min_depth, self.max_depth,
+                                          sigma, self.uniform_in_depth)
 
-        # spherical sweep, averaged over the source views
-        srcs = [i for i in range(v) if i != 1]
-        cost = sum(batched_sweep_cost(
-            ref_feats, feats[:, si], dvol, rots[:, [si, 1]],
-            trans[:, [si, 1]], self.convention)
-            for si in srcs) / len(srcs)                 # (B, D, H4, W4, C)
-        if self.group_num > 1:
-            g = self.group_num
-            cost = cost.reshape(*cost.shape[:4], g, cdim // g).mean(-1)
+            # spherical sweep, averaged over the source views
+            srcs = [i for i in range(v) if i != 1]
+            cost = sum(batched_sweep_cost(
+                ref_feats, feats[:, si], dvol, rots[:, [si, 1]],
+                trans[:, [si, 1]], self.convention)
+                for si in srcs) / len(srcs)             # (B, D, H4, W4, C)
+            if self.group_num > 1:
+                g = self.group_num
+                cost = cost.reshape(*cost.shape[:4], g, cdim // g).mean(-1)
 
         # 3D regularisation over NCDHW
-        reg = self.unet3d(cost.permute(0, 4, 1, 2, 3).contiguous())
+        with span("mvs.reg"):
+            reg = self.unet3d(cost.permute(0, 4, 1, 2, 3).contiguous())
         cost_reg = reg[:, 0]                             # (B, D, H4, W4)
 
         d1 = resize_linear(self.decoders1.conv(cost_reg), (h, w),

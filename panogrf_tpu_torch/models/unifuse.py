@@ -42,6 +42,7 @@ from panogrf_tpu_torch.core import cubemap, tangent
 from panogrf_tpu_torch.nn.blocks import PadConv2d, upsample2x_nearest
 from panogrf_tpu_torch.nn.fusion import make_fusion
 from panogrf_tpu_torch.nn.resnet import make_encoder
+from panogrf_tpu_torch.utils.spans import span
 
 # torchvision-resnet18 encoder channels / decoder channels
 NUM_CH_ENC = (64, 64, 128, 256, 512)
@@ -217,16 +218,18 @@ class UniFuse(_MonoDepth):
     def forward(self, equi: torch.Tensor, cube: torch.Tensor) -> dict:
         b, h, w, _ = equi.shape
         assert cube.shape[2] == h // 2
-        equi_feats = self.equi_encoder(equi.permute(0, 3, 1, 2))
-        c2e = _cube_to_erp(_encode_cube(self.cube_encoder, cube), b, h, w)
-        fusion = dict(zip(self.order, self.equi_decoder))
+        with span("mono"):
+            equi_feats = self.equi_encoder(equi.permute(0, 3, 1, 2))
+            c2e = _cube_to_erp(_encode_cube(self.cube_encoder, cube), b, h,
+                               w)
+            fusion = dict(zip(self.order, self.equi_decoder))
 
-        def feat(level: int) -> torch.Tensor:
-            """The level's ERP features fused with its cube features
-            resampled to ERP."""
-            return fusion[f"fusion_{level}"](equi_feats[level - 1],
-                                             c2e(level))
-        return self.decode(feat)
+            def feat(level: int) -> torch.Tensor:
+                """The level's ERP features fused with its cube features
+                resampled to ERP."""
+                return fusion[f"fusion_{level}"](equi_feats[level - 1],
+                                                 c2e(level))
+            return self.decode(feat)
 
 
 class EquiDepth(_MonoDepth):

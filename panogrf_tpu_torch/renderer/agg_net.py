@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from panogrf_tpu_torch.ops.kernels.fused_mlp import mlp2_batched
+from panogrf_tpu_torch.utils.spans import span
 
 
 def sinusoid_pos_encoding(n_samples: int, d_hid: int) -> np.ndarray:
@@ -222,9 +223,10 @@ class IBRNetWithNeuRay(nn.Module):
         def flat(t):
             return t.reshape(a0 * a1, v, t.shape[-1])
 
-        geo, rgb_out, nvalid = pool_reference(
-            flat(rgb_feat), flat(neuray_feat), flat(ray_diff), flat(mask),
-            params, self.geometry_only)
+        with span("agg.pool"):
+            geo, rgb_out, nvalid = pool_reference(
+                flat(rgb_feat), flat(neuray_feat), flat(ray_diff), flat(mask),
+                params, self.geometry_only)
         if dnr_dims is not None:
             def to_ray_major(t):
                 c = t.shape[-1]

@@ -19,6 +19,7 @@ from panogrf_tpu_torch.nn.blocks import resize_linear
 from panogrf_tpu_torch.parallel.mesh import RAY_AXIS, Mesh, assemble
 from panogrf_tpu_torch.renderer.renderer import NeuralRayGenRenderer
 from panogrf_tpu_torch.utils.device import resolve_device
+from panogrf_tpu_torch.utils.spans import span
 
 
 def _on(model: NeuralRayGenRenderer, device) -> torch.device:
@@ -121,13 +122,15 @@ def _render_poses(model: NeuralRayGenRenderer, ref_data: dict, c2w, qn: int,
                             torch.arange(lh, device=dev) * f + f // 2,
                             shards * lnc, lchunk)[index * lnc:
                                                   (index + 1) * lnc]
-    hit = torch.cat([model.coarse_hit_probs(
-        ref_data, c.expand(qn, lchunk, 2), *args) for c in lcoords], 1)
-    if mesh is not None:
-        hit = assemble(hit, mesh, RAY_AXIS, dim=1)
-    dn = hit.shape[-1]
-    hit_full = resize_linear(hit.reshape(qn, lh, lw, dn), (h, w),
-                             axes=(1, 2)).reshape(qn, shards * nc, chunk, dn)
+    with span("render.coarse"):
+        hit = torch.cat([model.coarse_hit_probs(
+            ref_data, c.expand(qn, lchunk, 2), *args) for c in lcoords], 1)
+        if mesh is not None:
+            hit = assemble(hit, mesh, RAY_AXIS, dim=1)
+        dn = hit.shape[-1]
+        hit_full = resize_linear(hit.reshape(qn, lh, lw, dn), (h, w),
+                                 axes=(1, 2)).reshape(qn, shards * nc, chunk,
+                                                      dn)
     for i in range(nc):
         rgb[:, i] = model.render_fine_from_hit(
             ref_data, coords[i].expand(qn, chunk, 2),

@@ -52,6 +52,7 @@ from panogrf_tpu_torch.renderer.init_net import (CostVolumeInitNet,
                                                  DefaultVisEncoder)
 from panogrf_tpu_torch.renderer.sph_solver import depth2normal
 from panogrf_tpu_torch.utils.device import resolve_device
+from panogrf_tpu_torch.utils.spans import span
 
 # the measurement-only stage ablations (``tools/bench.py --ablate``)
 ABLATIONS = ("", "agg", "gather", "agg+gather", "attn")
@@ -168,38 +169,39 @@ class NeuralRayGenRenderer(nn.Module):
             resolution under ``fast_gather``, else on the ray features'
             own grid).
         """
-        img_feats = self.image_encoder(ref_imgs)
-        ray_feats = self.vis_encoder(self.init_net(ref_imgs, mvs_depth),
-                                     img_feats)
-        dt = self.compute_dtype
-        out = {"imgs": ref_imgs.to(dt), "img_feats": img_feats.to(dt),
-               "ray_feats": ray_feats.to(dt), "mvs_depth": mvs_depth}
-        rf_up = resize_linear(out["ray_feats"], img_feats.shape[1:3],
-                              axes=(1, 2))
-        out["merged_feats"] = torch.cat([rf_up, out["img_feats"]], -1)
-        if self.fast_gather:
-            mf_full = resize_linear(out["merged_feats"], ref_imgs.shape[1:3],
-                                    axes=(1, 2))
-            parts = [out["imgs"], mf_full.to(dt)]
-            if self.decode_on_map:
-                # decode the mixture heads once on the full-res map; the
-                # stats ride on the row each sample fetches anyway
-                rf_full = mf_full[..., :ray_feats.shape[-1]].float()
-                heads = (self.dist_decoder, self.fine_dist_decoder) \
-                    if self.use_hierarchical_sampling else \
-                    (self.dist_decoder,)
-                for dec in heads:
-                    parts.append(self._stats(dec, rf_full).to(dt))
-            out["merged_full"] = torch.cat(parts, -1)
-        if self.light_coarse:
+        with span("prepare_ref"):
+            img_feats = self.image_encoder(ref_imgs)
+            ray_feats = self.vis_encoder(self.init_net(ref_imgs, mvs_depth),
+                                         img_feats)
+            dt = self.compute_dtype
+            out = {"imgs": ref_imgs.to(dt), "img_feats": img_feats.to(dt),
+                   "ray_feats": ray_feats.to(dt), "mvs_depth": mvs_depth}
+            rf_up = resize_linear(out["ray_feats"], img_feats.shape[1:3],
+                                  axes=(1, 2))
+            out["merged_feats"] = torch.cat([rf_up, out["img_feats"]], -1)
             if self.fast_gather:
-                src = resize_linear(
-                    out["merged_feats"][..., :ray_feats.shape[-1]],
-                    ref_imgs.shape[1:3], axes=(1, 2)).float()
-            else:
-                src = ray_feats.float()
-            out["stats_coarse"] = self._stats(self.dist_decoder, src)
-        return out
+                mf_full = resize_linear(out["merged_feats"],
+                                        ref_imgs.shape[1:3], axes=(1, 2))
+                parts = [out["imgs"], mf_full.to(dt)]
+                if self.decode_on_map:
+                    # decode the mixture heads once on the full-res map; the
+                    # stats ride on the row each sample fetches anyway
+                    rf_full = mf_full[..., :ray_feats.shape[-1]].float()
+                    heads = (self.dist_decoder, self.fine_dist_decoder) \
+                        if self.use_hierarchical_sampling else \
+                        (self.dist_decoder,)
+                    for dec in heads:
+                        parts.append(self._stats(dec, rf_full).to(dt))
+                out["merged_full"] = torch.cat(parts, -1)
+            if self.light_coarse:
+                if self.fast_gather:
+                    src = resize_linear(
+                        out["merged_feats"][..., :ray_feats.shape[-1]],
+                        ref_imgs.shape[1:3], axes=(1, 2)).float()
+                else:
+                    src = ray_feats.float()
+                out["stats_coarse"] = self._stats(self.dist_decoder, src)
+            return out
 
     @staticmethod
     def _stats(dec: MixtureLogisticsDistDecoder,
@@ -257,11 +259,12 @@ class NeuralRayGenRenderer(nn.Module):
             ref_data = dict(ref_data)
             ref_data["merged_full"] = \
                 ref_data["merged_full"][:, :1, :1] * 0 + 0.1
-        prj = ro.project_points_dict(ref_data, que_pts, self.convention,
-                                     que_dir.to(dt),
-                                     depth_major=self.gather_depth_major,
-                                     gather_stride=stride,
-                                     gather_nearest=self.gather_nearest)
+        with span("render.gather"):
+            prj = ro.project_points_dict(ref_data, que_pts, self.convention,
+                                         que_dir.to(dt),
+                                         depth_major=self.gather_depth_major,
+                                         gather_stride=stride,
+                                         gather_nearest=self.gather_nearest)
         if "stats" in prj:
             # one head's stats, or the coarse then the fine head's
             sw = prj["stats"].shape[-1]
@@ -295,7 +298,8 @@ class NeuralRayGenRenderer(nn.Module):
                     colors.transpose(1, 2)
         else:
             agg = self.fine_agg_net if is_fine else self.agg_net
-            density, colors = agg(prj)
+            with span("render.agg"):
+                density, colors = agg(prj)
         density, colors = density.float(), colors.float()
         return self._outputs(que_depth, colors, density,
                              ro.density2outputs(density, colors, que_depth))

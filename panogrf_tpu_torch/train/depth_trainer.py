@@ -56,6 +56,7 @@ from panogrf_tpu_torch.train import losses as L
 from panogrf_tpu_torch.train import metrics as M
 from panogrf_tpu_torch.train.trainer import ADAM_EPS
 from panogrf_tpu_torch.utils import visualize as V
+from panogrf_tpu_torch.utils.spans import span
 
 
 @dataclasses.dataclass
@@ -149,13 +150,16 @@ class DepthTrainer:
             batch = place_depth_batch(mesh, batch)
         self.model.train()
         self.opt.zero_grad(set_to_none=True)
-        loss = self.loss(self.forward_fn(batch), batch)
-        loss.backward()
+        with span("train.forward"):
+            loss = self.loss(self.forward_fn(batch), batch)
+        with span("train.backward"):
+            loss.backward()
         loss = loss.detach()
         if mesh is not None:
             sync_grads(self.model.parameters(), mesh, DATA_AXIS, mean=True)
             loss = pmean(loss, mesh, DATA_AXIS)
-        self.update()
+        with span("train.update"):
+            self.update()
         return loss
 
     def update(self) -> None:
