@@ -85,7 +85,13 @@ the wrapper's host cost, then drives the port's two paths at full width
   against its ``expected.json``, the reader's MB/s on each fixture on the
   host over five reads), the render CLI's eval frame at 512x1024 from the JAX trainer's
   renderer checkpoint (finite, in [0, 1], its ``mlp2`` launches), and no
-  module of JAX, orbax, tensorstore or zstandard loaded.
+  module of JAX, orbax, tensorstore or zstandard loaded;
+* the cross-view pool kernel (``csrc/cross_view_pool.cu``) at the
+  walkthrough's call, 1,048,576 points of 2 views in bfloat16 with and
+  without ``geometry_only``: against ``pool_reference`` in bfloat16 and in
+  float64, timed by CUDA events beside its bytes and FLOP bounds and the
+  plain chain, one ``pool_fused`` launch a call, and one a call of
+  ``IBRNetWithNeuRay`` on the card.
 
 Each path checks that it went through its kernels.  Each phase prints one
 JSON line; any failure raises, so the process exits non-zero.  The last
@@ -128,8 +134,10 @@ from panogrf_tpu_torch.models import unifuse as tunifuse
 from panogrf_tpu_torch.nn import blocks as tblocks
 from panogrf_tpu_torch.nn.blocks import resize_linear
 from panogrf_tpu_torch.ops.kernels import _build, fused_mlp
+from panogrf_tpu_torch.ops.kernels import cross_view_pool as cvp
 from panogrf_tpu_torch.parallel import programs
 from panogrf_tpu_torch.parallel.launch import run_ranks
+from panogrf_tpu_torch.renderer import agg_net
 from panogrf_tpu_torch.renderer import diner as diner_mod
 from panogrf_tpu_torch.renderer import full_render, render_ops
 from panogrf_tpu_torch.renderer.presets import (PRESET_CHUNK,
@@ -189,18 +197,18 @@ def ptxas_kernels(log: str) -> dict:
 
 def build() -> None:
     """Build (or reuse) the kernels' library; print what ptxas reports for
-    each kernel.  The redesigned variants (``*_lanes_kernel``,
-    ``*_rows_kernel``, ``*_mma_kernel``) must have no stack frame and no
-    spills."""
+    each kernel (from the build's log, kept beside a reused library).  The
+    redesigned variants (``*_lanes_kernel``, ``*_rows_kernel``,
+    ``*_mma_kernel``) must have no stack frame and no spills."""
     _build.load_library()
     info = _build.BUILD_INFO
     kernels = ptxas_kernels(info["log"])
     emit({"phase": "build", "seconds": info["seconds"],
-          "sources": info["sources"], "reused": not info["log"],
+          "sources": info["sources"], "reused": info["reused"],
           "ptxas": kernels})
     new = {k: v for k, v in kernels.items()
            if re.search("(lanes|rows|mma)_kernel", k)}
-    if info["log"] and len(new) < 4:
+    if len(new) < 4:
         raise AssertionError(f"ptxas reported {len(new)} redesigned kernels")
     for k, v in new.items():
         if v.get("stack") or v.get("spill_stores") or v.get("spill_loads"):
@@ -521,12 +529,32 @@ def grad_check() -> None:
                                      f" > 1e-4 x {scale}")
 
 
-def assert_specialised(what: str, mlp2_launches: int, variants: dict) -> None:
+# the cross_view_pool kernel's launches on each main path that
+# assert_specialised checked, by path (a path's first run): the kernel
+# table's launches
+POOL_LAUNCHES = {}
+
+
+def assert_specialised(what: str, mlp2_launches: int, variants: dict,
+                       pool: str | None) -> None:
     """Every ``mlp2`` launch of a main-path run went to the specialised
-    variant (``lanes``), none to ``generic``."""
+    variant (``lanes``), none to ``generic``.  Each aggregation call
+    launches ``out_geometry_fc``'s mlp2 once, and its cross-view pool ran
+    as ``pool`` says: "fused" (bfloat16 without gradients) the
+    ``cross_view_pool`` kernel every call and ``pool_reference`` never,
+    "plain" (float32, or gradients taken) ``pool_reference`` every call
+    and the kernel never; None when the caller checks the pools itself."""
     if variants["mlp2_lanes"] != mlp2_launches or variants["mlp2_generic"]:
         raise AssertionError(f"{what}: mlp2 variants {variants}, "
                              f"{mlp2_launches} launches")
+    if pool is None:
+        return
+    want = {"fused": (mlp2_launches, 0), "plain": (0, mlp2_launches)}[pool]
+    if (variants["pool_fused"], variants["pool_plain"]) != want:
+        raise AssertionError(f"{what}: cross-view pools {variants}, want "
+                             f"{pool} in each of {mlp2_launches} calls")
+    POOL_LAUNCHES.setdefault(re.sub(r" step \d+$", " a step", what),
+                             variants["pool_fused"])
 
 
 # ---------------------------------------------------------------------------
@@ -535,8 +563,9 @@ def assert_specialised(what: str, mlp2_launches: int, variants: dict) -> None:
 
 def frame_run(phase: str, run: str, frame, expected: int, meta: dict,
               like: torch.Tensor | None = None) -> tuple:
-    """One frame ``frame()`` counted (its mlp2 launches must equal
-    ``expected``, all ``lanes``, and no mlp3) then three CUDA-event timed
+    """One bfloat16 frame ``frame()`` counted (its mlp2 launches must
+    equal ``expected``, all ``lanes``, each aggregation call's pool the
+    ``cross_view_pool`` kernel, and no mlp3) then three CUDA-event timed
     runs; checks the frame is (H, W, 3), finite, in [0, 1], and reports
     its difference from ``like`` (the same frame at another chunk, whose
     bfloat16 products may round differently).  Emits the phase's line and
@@ -579,7 +608,7 @@ def frame_run(phase: str, run: str, frame, expected: int, meta: dict,
     if count != expected or count3:
         raise AssertionError(f"{phase} {run}: mlp2 launched {count} times, "
                              f"expected {expected}; mlp3 {count3}")
-    assert_specialised(f"{phase} {run}", count, variants)
+    assert_specialised(f"{phase} {run}", count, variants, "fused")
     return row, rgb
 
 
@@ -703,7 +732,7 @@ def cuda_vs_cpu() -> None:
         if device == "cuda":
             launches = fused_mlp.MLP2_LAUNCHES
             assert_specialised("cuda_vs_cpu", launches,
-                               fused_mlp.VARIANT_LAUNCHES)
+                               fused_mlp.VARIANT_LAUNCHES, "plain")
     err = (rgbs["cuda"] - rgbs["cpu"]).abs().max().item()
     emit({"phase": "cuda_vs_cpu", "hw": [h, w], "dtype": "float32",
           "mlp2_launches_cuda": launches, "max_abs_err_rgb": err,
@@ -789,7 +818,7 @@ def timed_training(phase: str, build, fit, params, finish,
                              f"out_geometry_fc per pass)")
     for s in steps:
         assert_specialised(f"{phase} step {s['step']}", s["mlp2_launches"],
-                           s["variants"])
+                           s["variants"], "plain")
     return trainer, row, steps
 
 
@@ -902,7 +931,7 @@ def train_cuda_vs_cpu() -> None:
         launches = fused_mlp.MLP2_LAUNCHES
         if device == "cuda":
             assert_specialised("train_cuda_vs_cpu", launches,
-                               fused_mlp.VARIANT_LAUNCHES)
+                               fused_mlp.VARIANT_LAUNCHES, "plain")
         results[device] = (float(metrics["loss"]),
                            {n: p.grad.detach().cpu()
                             for n, p in model.named_parameters()}, launches)
@@ -1417,7 +1446,7 @@ def render_cli(mvs_ckpt) -> dict:
             raise AssertionError(f"render_cli {name}: mlp2 launched {count}"
                                  f" times, expected {passes} x {per_frame};"
                                  f" mlp3 {count3}")
-        assert_specialised(f"render_cli {name}", count, variants)
+        assert_specialised(f"render_cli {name}", count, variants, "fused")
         result[name] = count
     return result
 
@@ -1427,7 +1456,7 @@ def video_cuda() -> None:
     pose, on the card at 64x128 (serving flags, float32, coarse pass at
     half resolution): rgb within 2e-3 (the CUDA-against-CPU limit: the
     batched products may round differently); the 3-pose group launches
-    mlp2 as often as one frame."""
+    mlp2 as often as one frame, all ``lanes``, each pool plain (float32)."""
     h, w, dh, dw = 64, 128, 32, 64
     ref_info, c2w, qdr = bench.bench_inputs(h, w, dh, dw)
     model = NeuralRayGenRenderer(
@@ -1442,11 +1471,15 @@ def video_cuda() -> None:
     video = full_render.render_video_device(model, ref, c2ws, *args,
                                             chunk=256, coarse_lowres=2)
     launches = fused_mlp.MLP2_LAUNCHES
+    assert_specialised("video_cuda group", launches,
+                       fused_mlp.VARIANT_LAUNCHES, "plain")
     fused_mlp.reset_launches()
     frames = [full_render.render_image_device(model, ref, c, *args,
                                               chunk=256, coarse_lowres=2)
               for c in c2ws]
     frame_launches = fused_mlp.MLP2_LAUNCHES / len(c2ws)
+    assert_specialised("video_cuda frames", fused_mlp.MLP2_LAUNCHES,
+                       fused_mlp.VARIANT_LAUNCHES, "plain")
     errs = [(video[b] - frames[b]).abs().max().item() for b in range(3)]
     emit({"phase": "video_cuda", "hw": [h, w], "dtype": "float32",
           "frames": 3, "max_abs_err_rgb": errs,
@@ -1552,12 +1585,15 @@ RENDER_FT_OUT = "data/chip_smoke_render_ft"
 RENDER_MV_OUT = "data/chip_smoke_render_mv"
 
 
-def render_cli_runs(phase: str, tool, argv: list, runs: dict) -> tuple:
+def render_cli_runs(phase: str, tool, argv: list, runs: dict,
+                    pool: str) -> tuple:
     """``tool.main`` on ``argv`` plus each run's flags at 4096-ray chunks,
     ``runs`` = {name: (flags, frames)}: the metrics (finite) or the path's
     frame count, s/frame, and exactly 2 mlp2 launches per chunk pass (the
     coarse and fine ``out_geometry_fc``), 256 per 512x1024 frame, all
-    ``lanes``.  Returns ({run: mlp2 launches}, mlp3 launches)."""
+    ``lanes``, each call's cross-view pool as ``pool`` says
+    (``assert_specialised``).  Returns ({run: mlp2 launches}, mlp3
+    launches)."""
     per_frame = 2 * (H * W // 4096)
     counts, mlp3 = {}, 0
     for name, (extra, frames) in runs.items():
@@ -1579,7 +1615,7 @@ def render_cli_runs(phase: str, tool, argv: list, runs: dict) -> tuple:
             raise AssertionError(f"{phase} {name}: mlp2 launched {count} "
                                  f"times, expected {frames} x {per_frame};"
                                  f" mlp3 {count3}")
-        assert_specialised(f"{phase} {name}", count, variants)
+        assert_specialised(f"{phase} {name}", count, variants, pool)
         counts[name] = count
         mlp3 += count3
     return counts, mlp3
@@ -1592,7 +1628,8 @@ def render_ft_cli(ft_ckpt) -> tuple:
             "--out", RENDER_FT_OUT, "--device", "cuda"]
     return render_cli_runs("render_ft", render_ft, argv, {
         "eval": ([], 1),
-        "inter": (["--pose-type", "inter", "--inter-num", "3"], 3)})
+        "inter": (["--pose-type", "inter", "--inter-num", "3"], 3)},
+        "plain")
 
 
 def render_mv_cli(ckpt) -> tuple:
@@ -1603,7 +1640,8 @@ def render_mv_cli(ckpt) -> tuple:
             "1", "--height", str(H), "--width", str(W), "--depth-height",
             str(DH), "--depth-width", str(DW), "--out", RENDER_MV_OUT,
             "--device", "cuda"]
-    return render_cli_runs("render_mv", render_mv, argv, {"eval": ([], 1)})
+    return render_cli_runs("render_mv", render_mv, argv, {"eval": ([], 1)},
+                           "plain")
 
 
 def off_seam_coords(rng, n: int, h: int, w: int) -> torch.Tensor:
@@ -1714,7 +1752,8 @@ def mv_ft_cuda_vs_cpu() -> None:
               "params": len(grads_p), "grad_worst_limit_share": sorted(
                   share.items(), key=lambda kv: -kv[1])[:5],
               "grad_abs_floor": floor, "params_over_limit": bad})
-        assert_specialised(f"mv_ft_cuda_vs_cpu {name}", launches, variants)
+        assert_specialised(f"mv_ft_cuda_vs_cpu {name}", launches, variants,
+                           "plain")
         if launches != 2 or not loss_rel <= 1e-4 or bad:
             raise AssertionError(f"mv_ft_cuda_vs_cpu {name}: loss rel "
                                  f"{loss_rel}, launches {launches}, over "
@@ -1809,7 +1848,7 @@ def render_cubes_cli() -> int:
     if count != expected or count3:
         raise AssertionError(f"render_cubes: mlp2 launched {count} times, "
                              f"expected {expected}; mlp3 {count3}")
-    assert_specialised("render_cubes", count, variants)
+    assert_specialised("render_cubes", count, variants, "plain")
     return count
 
 
@@ -1852,7 +1891,7 @@ def ab_quality_cli() -> dict:
                                      f"{fused_mlp.MLP2_LAUNCHES}, expected "
                                      f"{expected}")
             assert_specialised(f"ab_quality {mode}", expected,
-                               launches[mode]["variants"])
+                               launches[mode]["variants"], "fused")
         if not all(np.isfinite(v) for m in table.values()
                    for v in m.values()):
             raise AssertionError(f"ab_quality: {table}")
@@ -1970,7 +2009,7 @@ def modes_cuda_vs_cpu() -> None:
             if device == "cuda":
                 launches = fused_mlp.MLP2_LAUNCHES
                 assert_specialised(f"modes_cuda_vs_cpu {name}", launches,
-                                   fused_mlp.VARIANT_LAUNCHES)
+                                   fused_mlp.VARIANT_LAUNCHES, "plain")
         diff = (out["cuda"] - out["cpu"]).abs().amax(-1)
         flagged = torch.zeros_like(diff, dtype=torch.bool)
         for shift in (1e-6, -1e-6, 1e-7, -1e-7):
@@ -2042,7 +2081,8 @@ def diner_step_cuda_vs_cpu(h: int, w: int, dh: int, dw: int) -> None:
           "grad_worst_limit_share": sorted(share.items(),
                                            key=lambda kv: -kv[1])[:5],
           "grad_abs_floor": floor, "params_over_limit": bad})
-    assert_specialised("modes_cuda_vs_cpu diner step", launches, variants)
+    assert_specialised("modes_cuda_vs_cpu diner step", launches, variants,
+                       "plain")
     if launches != 2 or not loss_rel <= 1e-4 or bad:
         raise AssertionError(f"modes_cuda_vs_cpu diner step: loss rel "
                              f"{loss_rel}, launches {launches}, over limit "
@@ -2267,7 +2307,7 @@ def variant_cuda_vs_cpu() -> None:
         if device == "cuda":
             launches = fused_mlp.MLP2_LAUNCHES
             assert_specialised("variant_cuda_vs_cpu erp_tp frame", launches,
-                               fused_mlp.VARIANT_LAUNCHES)
+                               fused_mlp.VARIANT_LAUNCHES, "plain")
     err = (rgbs["cuda"] - rgbs["cpu"]).abs().max().item()
     emit({"phase": "variant_cuda_vs_cpu", "variant": "erp_tp_frame",
           "hw": [h, w], "dtype": "float32", "mlp2_launches_cuda": launches,
@@ -2518,7 +2558,9 @@ def shard_renders(shards: Path, cube_shards: Path, ckpt) -> dict:
         if count != expected or count3:
             raise AssertionError(f"{phase}: mlp2 launched {count} times, "
                                  f"expected {expected}; mlp3 {count3}")
-        assert_specialised(phase, count, variants)
+        # the serving render is bfloat16; render_cubes runs the exact flags
+        assert_specialised(phase, count, variants,
+                           "fused" if phase == "render_shards" else "plain")
         counts[phase] = count
     return counts
 
@@ -2633,6 +2675,7 @@ def timed_cli(tool, argv: list) -> tuple:
         steps.append({"loss": metrics["loss"], "ev": ev,
                       "mlp2": fused_mlp.MLP2_LAUNCHES,
                       "lanes": fused_mlp.VARIANT_LAUNCHES["mlp2_lanes"],
+                      "pools": _pools(),
                       "mlp3": fused_mlp.MLP3_LAUNCHES})
         fused_mlp.reset_launches()
 
@@ -2647,14 +2690,24 @@ def timed_cli(tool, argv: list) -> tuple:
     return result, steps, ms, seconds
 
 
-def _launch_check(phase: str, runs: dict, per_step: int) -> None:
+def _pools() -> list:
+    """The cross-view pools since the last reset: [kernel, plain]."""
+    return [fused_mlp.VARIANT_LAUNCHES["pool_fused"],
+            fused_mlp.VARIANT_LAUNCHES["pool_plain"]]
+
+
+def _launch_check(phase: str, runs: dict, per_step: int, pool: str) -> None:
     """Each run's mlp2 launches: ``per_step`` a step (a frame), all
-    ``lanes``; mlp3 none."""
+    ``lanes``, each aggregation call's pool as ``pool`` says ("fused":
+    the kernel, "plain": ``pool_reference``); mlp3 none."""
     for run, r in runs.items():
         want = [per_step] * len(r["mlp2"])
-        if r["mlp2"] != want or r["lanes"] != r["mlp2"] or any(r["mlp3"]):
+        pools = [[n, 0] if pool == "fused" else [0, n] for n in r["mlp2"]]
+        if r["mlp2"] != want or r["lanes"] != r["mlp2"] or any(r["mlp3"]) \
+                or r["pools"] != pools:
             raise AssertionError(f"{phase} {run}: mlp2 {r['mlp2']} (want "
-                                 f"{want}), lanes {r['lanes']}, mlp3 "
+                                 f"{want}), lanes {r['lanes']}, pools "
+                                 f"{r['pools']} (want {pools}), mlp3 "
                                  f"{r['mlp3']}")
 
 
@@ -2678,6 +2731,7 @@ def _cli_runs(phase: str, tool, argv: list, grad_rtol: float,
             "cli_seconds": seconds,
             "mlp2": [s["mlp2"] for s in steps],
             "lanes": [s["lanes"] for s in steps],
+            "pools": [s["pools"] for s in steps],
             "mlp3": [s["mlp3"] for s in steps]}
     gap = _grad_gap(grads["mesh1"], grads["one"], grad_rtol)
     emit({"phase": phase, "argv": argv, "steps": MESH_STEPS,
@@ -2690,7 +2744,8 @@ def _cli_runs(phase: str, tool, argv: list, grad_rtol: float,
             or gap[0] > 1.0:
         raise AssertionError(f"{phase}: losses {one['losses']} / "
                              f"{mesh['losses']}, gradient gap {gap}")
-    _launch_check(phase, runs, per_step)
+    # training takes gradients: every pool is plain
+    _launch_check(phase, runs, per_step, "plain")
     return runs
 
 
@@ -2724,13 +2779,15 @@ def _mesh_render_cli() -> None:
                      **summary["mean"],
                      "mlp2": [fused_mlp.MLP2_LAUNCHES],
                      "lanes": [fused_mlp.VARIANT_LAUNCHES["mlp2_lanes"]],
+                     "pools": [_pools()],
                      "mlp3": [fused_mlp.MLP3_LAUNCHES]}
         frames[run] = read_frame(out / "0-nr_fine.png")
     one, other = frames.values()
     diff = int(np.abs(one.astype(np.int16) - other).max())
     emit({"phase": "mesh_render", "hw": [H, W], "chunk": chunk,
           "card": gpu_name_and_power(), **runs, "max_uint8_diff": diff})
-    _launch_check("mesh_render", runs, per_frame)
+    _launch_check("mesh_render", runs, per_frame, "fused")
+    POOL_LAUNCHES["mesh_render"] = runs["mesh1"]["pools"][0][0]
     psnr = [r["psnr_nr"] for r in runs.values()]
     if diff > 1 or not np.isclose(*psnr, rtol=1e-4):
         raise AssertionError(f"mesh_render: frames differ ({diff}) {runs}")
@@ -2863,7 +2920,13 @@ def mesh_programs(ranks: int, backend: str) -> dict:
         fl[ranks]["mlp2"] == [per_frame // ranks] * ranks,
         "lanes_no_mlp3": all(w["mlp2_lanes"] == w["mlp2"] and
                              not any(w["mlp3"])
-                             for x in (dl, rl, fl) for w in x.values())}
+                             for x in (dl, rl, fl) for w in x.values()),
+        # the bfloat16 frame pools through the kernel; training (gradients)
+        # and the depth step (no aggregation) run no kernel pool
+        "pools": all(w["pool_fused"] == w["mlp2"] and not any(w["pool_plain"])
+                     for w in fl.values()) and
+        all(w["pool_plain"] == w["mlp2"] and not any(w["pool_fused"])
+            for x in (dl, rl) for w in x.values())}
     if not all(checks.values()):
         raise AssertionError(f"mesh programs: checks {checks}")
     return {"frame_per_rank": fl[ranks]["mlp2"],
@@ -2929,7 +2992,8 @@ BENCH_RUNS = {
 def bench_tool(card: str) -> dict:
     """``tools.bench`` at 512x1024 in each mode of BENCH_RUNS, in process:
     its JSON line (with the card), the mlp2 launches of its counted frame
-    (and of a B = 2 video pass) asserted, all ``lanes``, no mlp3; the
+    (and of a B = 2 video pass) asserted, all ``lanes``, each pool the
+    ``cross_view_pool`` kernel, no mlp3; the
     whole call's launches, finite positive times, and on the roofline run
     an agg MFU in (0, 1.05].  Returns {run: mlp2 launches a frame}."""
     launches = {}
@@ -2942,13 +3006,19 @@ def bench_tool(card: str) -> dict:
         emit({"phase": "bench", "run": run, "argv": argv, **rec,
               "tool_seconds": seconds, "mlp2_launches_in_call": calls,
               "card": card})
-        counts = [(rec["mlp2_launches"], rec["mlp2_lanes_launches"])]
+        # every run is bfloat16 without gradients: each aggregation call
+        # (one mlp2 launch) pools through the cross_view_pool kernel
+        counts = [(rec["mlp2_launches"], rec["mlp2_lanes_launches"],
+                   rec["pool_fused_launches"], rec["pool_plain_launches"])]
         if "video_batch" in rec:
             counts.append((rec["video_mlp2_launches"],
-                           rec["video_mlp2_lanes_launches"]))
-        if any(c != (expected, expected) for c in counts) or \
+                           rec["video_mlp2_lanes_launches"],
+                           rec["video_pool_fused_launches"],
+                           rec["video_pool_plain_launches"]))
+        if any(c != (expected, expected, expected, 0) for c in counts) or \
                 rec["mlp3_launches"] or (expected and not calls):
-            raise AssertionError(f"bench {run}: mlp2 (all, lanes) {counts},"
+            raise AssertionError(f"bench {run}: mlp2 (all, lanes) and "
+                                 f"pools (fused, plain) {counts},"
                                  f" expected {expected}; mlp3 "
                                  f"{rec['mlp3_launches']}")
         times = [rec["value"], *rec["runs"]] + [
@@ -2962,6 +3032,7 @@ def bench_tool(card: str) -> dict:
         if "agg_mfu" in rec and not 0 < rec["agg_mfu"] <= 1.05:
             raise AssertionError(f"bench {run}: agg MFU {rec['agg_mfu']}")
         launches[run] = rec["mlp2_launches"]
+        POOL_LAUNCHES[f"bench {run}"] = rec["pool_fused_launches"]
     return launches
 
 
@@ -3109,7 +3180,7 @@ def parity_check_tool(files: dict, lpips_weights: Path, card: str) -> int:
     if count != expected or count3:
         raise AssertionError(f"parity_check: mlp2 launched {count} times, "
                              f"expected {expected}; mlp3 {count3}")
-    assert_specialised("parity_check", count, variants)
+    assert_specialised("parity_check", count, variants, "plain")
     return count
 
 
@@ -3186,32 +3257,68 @@ PROFILE_STAGES = {
 PROFILE_BF16_TOL = 2e-2
 
 
+def _honest_outputs(dev: str, dtype: str, grad: bool = False) -> tuple:
+    """Each of ``profile_honest``'s ``agg_net`` and ``attn_tail`` stages
+    once at a 256-ray chunk: {stage: (outputs on the CPU, float32), ...},
+    the mlp2 launches and the launches by variant.  ``grad``: the stages
+    run with gradients on (their parameters require them), the case that
+    the aggregation net sends to ``pool_reference`` on any device, as it
+    does the renderer trainers' calls; else in inference mode."""
+    with torch.enable_grad() if grad else torch.inference_mode():
+        stages = profile_honest.honest_stages(
+            256, dtype, torch.device(dev), only=["agg", "attn"])
+        fused_mlp.reset_launches()
+        outs = {k: st.run(st.init) for k, st in stages.items()}
+    outs = {k: tuple(t.detach().float().cpu() for t in
+                     (o if isinstance(o, tuple) else (o,)))
+            for k, o in outs.items()}
+    return outs, fused_mlp.MLP2_LAUNCHES, dict(fused_mlp.VARIANT_LAUNCHES)
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
 def profile_stages_cuda_vs_cpu() -> None:
     """``profile_honest``'s ``agg_net`` and ``attn_tail`` stages (seeded
-    weights, the tool's inputs) at a 256-ray chunk in bfloat16: the
+    weights, the tool's inputs) at a 256-ray chunk in bfloat16.  First the
     ``mlp2`` kernel on the card against its plain version on the CPU,
-    within PROFILE_BF16_TOL of each output's largest."""
+    within PROFILE_BF16_TOL of each output's largest: this comparison
+    covers ``mlp2`` only, since both sides run the cross-view pool plain
+    (the card's side with gradients on, which the dispatch sends to
+    ``pool_reference``; asserted by its counts).  Then the ``agg_net``
+    stage as the port runs it, with the pool kernel, on the card against
+    the CPU's float32 stage: the kernel rounds to bfloat16 at other places
+    than the plain chain, and the stage's density moves by 3-4% of its
+    largest under any such change (PERF.md §6), so its gap to
+    float32 may be at most 1.25 times the CPU bfloat16 stage's own gap
+    (the rule the pool kernel's own check holds its mean gap to)."""
     row = {"phase": "profile_cuda_vs_cpu", "chunk": 256,
            "dtype": "bfloat16", "tol": PROFILE_BF16_TOL}
-    outs = {}
-    with torch.inference_mode():
-        for dev in ("cuda", "cpu"):
-            stages = profile_honest.honest_stages(
-                256, "bfloat16", torch.device(dev), only=["agg", "attn"])
-            fused_mlp.reset_launches()
-            outs[dev] = {k: st.run(st.init) for k, st in stages.items()}
-            row[f"mlp2_launches_{dev}"] = fused_mlp.MLP2_LAUNCHES
-    ok = row["mlp2_launches_cuda"] == 2 and row["mlp2_launches_cpu"] == 0
-    for key, cuda in outs["cuda"].items():
-        cuda = cuda if isinstance(cuda, tuple) else (cuda,)
-        cpu = outs["cpu"][key]
-        cpu = cpu if isinstance(cpu, tuple) else (cpu,)
-        for i, (a, b) in enumerate(zip(cuda, cpu)):
-            a, b = a.float().cpu(), b.float()
-            err = ((a - b).abs().max() / b.abs().max()).item()
+    plain_pool, row["mlp2_launches_cuda"], v = _honest_outputs(
+        "cuda", "bfloat16", grad=True)
+    row["pools_cuda_with_grad"] = [v["pool_fused"], v["pool_plain"]]
+    cpu, row["mlp2_launches_cpu"], _ = _honest_outputs("cpu", "bfloat16")
+    ok = row["mlp2_launches_cuda"] == 2 and row["mlp2_launches_cpu"] == 0 \
+        and row["pools_cuda_with_grad"] == [0, 1]
+    for key, outs in plain_pool.items():
+        for i, (a, b) in enumerate(zip(outs, cpu[key])):
+            err = _rel(a, b)
             row[f"{key}[{i}]_rel_err"] = err
             ok = ok and torch.isfinite(a).all().item() and \
                 err <= PROFILE_BF16_TOL
+    kernel, _, v = _honest_outputs("cuda", "bfloat16")
+    row["pools_cuda"] = [v["pool_fused"], v["pool_plain"]]
+    exact, _, _ = _honest_outputs("cpu", "float32")
+    ok = ok and row["pools_cuda"] == [1, 0]
+    for i, (a, b, e) in enumerate(zip(kernel["agg_net_ms"],
+                                      cpu["agg_net_ms"],
+                                      exact["agg_net_ms"])):
+        gap, plain_gap = _rel(a, e), _rel(b, e)
+        row[f"agg_net_ms[{i}]_pool_kernel_rel_err_fp32"] = gap
+        row[f"agg_net_ms[{i}]_cpu_bf16_rel_err_fp32"] = plain_gap
+        ok = ok and torch.isfinite(a).all().item() and \
+            gap <= 1.25 * plain_gap
     emit(row)
     if not ok:
         raise AssertionError(f"profile_cuda_vs_cpu: {row}")
@@ -3248,7 +3355,19 @@ def profile_tools_group() -> dict:
             raise AssertionError(f"profile_tools {run}: mlp2 launches "
                                  f"{rec['mlp2_launches']}, expected {want};"
                                  f" variants {variants}")
-        assert_specialised(f"profile_tools {run}", calls, variants)
+        if tool is profile_honest:
+            # bfloat16: each aggregation call pools through the kernel,
+            # and the attn_tail stage launches mlp2 with no pool
+            assert_specialised(f"profile_tools {run}", calls, variants, None)
+            if variants["pool_plain"] or \
+                    not 0 < variants["pool_fused"] < calls:
+                raise AssertionError(f"profile_tools {run}: cross-view "
+                                     f"pools {variants}, {calls} mlp2")
+            POOL_LAUNCHES[f"profile_tools {run}"] = variants["pool_fused"]
+        else:
+            # float32 (profile_render), or no aggregation (profile_mvs)
+            assert_specialised(f"profile_tools {run}", calls, variants,
+                               "plain")
         for stage, n in expected.items():
             out[f"{run}_{stage.removesuffix('_ms')}"] = \
                 rec["mlp2_launches"][stage]
@@ -3348,8 +3467,138 @@ def orbax_render() -> int:
     if count != per_frame or count3:
         raise AssertionError(f"orbax_render_cli: mlp2 launched {count} "
                              f"times, expected {per_frame}; mlp3 {count3}")
-    assert_specialised("orbax_render_cli", count, variants)
+    assert_specialised("orbax_render_cli", count, variants, "fused")
     return count
+
+
+# the walkthrough's aggregation call: 4 frames x 4096 rays x 64 samples
+POOL_POINTS, POOL_VIEWS = 1048576, 2
+
+
+def pool_inputs(n: int, v: int, seed: int) -> list:
+    """bfloat16 pool inputs on the card, a fifth of the views masked, point
+    0 with every view masked."""
+    g = torch.Generator("cuda").manual_seed(seed)
+    mask = (torch.rand(n, v, 1, device="cuda", generator=g) > 0.2).to(BF16)
+    mask[0] = 0
+    return [(torch.randn(n, v, c, device="cuda", generator=g) * sc).to(BF16)
+            for c, sc in ((35, 0.5), (32, 1.0), (4, 0.3))] + [mask]
+
+
+def pool_bounds_ms(n: int, v: int, geometry_only: bool) -> tuple:
+    """(bound ms, what bounds it, bytes, FLOPs) of one pool call: each input
+    read once and each output written once in bfloat16, and the matrix
+    products' FLOPs (base_fc's pooled half and geometry_fc once a point)."""
+    dims = {k: d(35, 32) for k, d in agg_net._POOL_DIMS.items()}
+
+    def macs(name, first_in=None):
+        d = dims[name]
+        d = (first_in or d[0],) + tuple(d[1:])
+        return sum(a * b for a, b in zip(d[:-1], d[1:]))
+    per_view = macs("ray_dir_fc") + macs("neuray_fc") + macs("vis_fc") + \
+        macs("vis_fc2") + macs("base_fc", 35 + 32) + \
+        (0 if geometry_only else macs("rgb_fc"))
+    per_point = 4 * 35 * 64 + macs("geometry_fc")
+    flops = 2.0 * n * (v * per_view + per_point)
+    nbytes = n * (v * (35 + 32 + 4 + 1) + 16 + 3 + 1) * 2
+    t_bytes, t_flops = nbytes / HBM_BYTES_S, flops / PEAK_FLOPS[BF16]
+    return (max(t_bytes, t_flops) * 1e3,
+            "bytes" if t_bytes >= t_flops else "operations", nbytes, flops)
+
+
+def pool_kernel_group(card: str) -> dict:
+    """The cross-view pool kernel at the walkthrough's call: ptxas's
+    registers (no stack frame, no spills), both ``geometry_only`` modes
+    against ``pool_reference`` in bfloat16 and float64 (the kernel's mean
+    gap to float64 within 1.25x the plain chain's, its largest within 2x
+    plus one bfloat16 step of the scale, nvalid exact), CUDA-event times of
+    the kernel (two turns) and the plain chain beside the bounds, one
+    ``pool_fused`` launch a call, and ``IBRNetWithNeuRay`` on the card
+    taking the kernel once a call.  Returns the kernel-table row."""
+    ptx = {k: v for k, v in ptxas_kernels(_build.BUILD_INFO["log"]).items()
+           if "cross_view_pool" in k}
+    emit({"phase": "pool_build", "ptxas": ptx, "card": card})
+    if len(ptx) != 3:
+        raise AssertionError(f"ptxas reported {len(ptx)} pool kernels")
+    for k, v in ptx.items():
+        if v.get("stack") or v.get("spill_stores") or v.get("spill_loads"):
+            raise AssertionError(f"{k}: stack frame or spills {v}")
+    torch.manual_seed(0)
+    net = agg_net.IBRNetWithNeuRay().cuda()
+    params = {k: agg_net._linears(getattr(net, k), BF16)
+              for k in agg_net._POOL_DIMS}
+    p64 = {k: [(w.double(), b.double()) for w, b in ls]
+           for k, ls in params.items()}
+    ins = pool_inputs(POOL_POINTS, POOL_VIEWS, seed=3)
+    packed = net.packed_pool_weights(ins[0])
+    row = {"name": "cross_view_pool", "route": "cuda",
+           "source": "panogrf_tpu_torch/csrc/cross_view_pool.cu",
+           "replaces": None, "shape": [POOL_POINTS, POOL_VIEWS],
+           "dtype": "bfloat16", "library_ms": None}
+    with torch.inference_mode():
+        for geometry_only in (False, True):
+            def kernel():
+                return cvp.cross_view_pool(*ins, packed, geometry_only)
+
+            def plain():
+                return agg_net.pool_reference(*ins, params, geometry_only)
+            got, ref = kernel(), plain()
+            exact = agg_net.pool_reference(*(t.double() for t in ins), p64,
+                                           geometry_only)
+            rec = {"phase": "pool_kernel", "geometry_only": geometry_only,
+                   "points": POOL_POINTS, "views": POOL_VIEWS, "card": card}
+            ok = torch.equal(got[2].double(), exact[2]) and \
+                all(bool(torch.isfinite(t).all()) for t in got) and \
+                (not geometry_only or not got[1].any())
+            for name, g, p, e in zip(("geo", "rgb"), got, ref, exact):
+                if geometry_only and name == "rgb":
+                    continue
+                dk, dp = (g.double() - e).abs(), (p.double() - e).abs()
+                scale = max(e.abs().max().item(), 1.0)
+                rec.update({f"{name}_max_gap": dk.max().item(),
+                            f"{name}_mean_gap": dk.mean().item(),
+                            f"{name}_plain_max_gap": dp.max().item(),
+                            f"{name}_plain_mean_gap": dp.mean().item(),
+                            f"{name}_kernel_vs_plain": (g.float() - p.float())
+                            .abs().max().item()})
+                ok = ok and dk.mean() <= 1.25 * dp.mean() + 1e-6 and \
+                    dk.max() <= 2 * dp.max() + 2 ** -8 * scale
+            del exact
+            fused_mlp.reset_launches()
+            turns = [event_time_ms(kernel, 50) for _ in range(2)]
+            calls = fused_mlp.VARIANT_LAUNCHES["pool_fused"]
+            plain_ms = event_time_ms(plain, 10)
+            bound, by, nbytes, flops = pool_bounds_ms(
+                POOL_POINTS, POOL_VIEWS, geometry_only)
+            ms = statistics.mean(turns)
+            rec.update({"ms": ms, "ms_turns": turns, "plain_ms": plain_ms,
+                        "profiler_ms": us_to_ms(profiler_time_us(kernel, 20)),
+                        "bound_ms": bound, "bound_by": by,
+                        "bound_bytes": nbytes, "bound_flops": flops,
+                        "roofline_pct": 100 * bound / ms,
+                        "pool_fused_launches": calls,
+                        "timed_calls": 2 * (3 + 50)})
+            emit(rec)
+            if not ok or calls != 2 * (3 + 50):
+                raise AssertionError(f"pool_kernel: {rec}")
+            if not geometry_only:
+                row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                           bound_by=by, max_abs_err=rec["geo_max_gap"])
+            else:
+                row["geometry_only_ms"] = ms
+        fused_mlp.reset_launches()
+        x = [t[:4096 * 64].reshape(4096, 64, POOL_VIEWS, t.shape[-1])
+             for t in ins]
+        out = net.to(BF16)(*x)
+        launches = dict(fused_mlp.VARIANT_LAUNCHES)
+    if launches["pool_fused"] != 1 or launches["pool_plain"] != 0 or \
+            not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"IBRNetWithNeuRay on the card: {launches}")
+    # the kernel's launches on each main path that ran before this group,
+    # as assert_specialised and the other path checks counted and held them
+    # (one a bfloat16 aggregation call, none on float32 or gradient paths)
+    row["launches"] = dict(POOL_LAUNCHES)
+    return row
 
 
 def orbax_group() -> int:
@@ -3370,7 +3619,7 @@ def orbax_group() -> int:
 PHASES = ("kernels", "serving", "training", "depth_stack",
           "depth_training", "render_cli", "video", "mv_ft", "modes",
           "depth_variants", "data", "parallel", "measure", "profile_tools",
-          "orbax")
+          "orbax", "pool")
 
 
 def main(argv=None) -> int:
@@ -3486,6 +3735,7 @@ def main(argv=None) -> int:
             row[f"launches_profile_{path}"] = n
     if "orbax" in phases:
         row["launches_orbax_render_cli_eval"] = orbax_group()
+    row_pool = pool_kernel_group(smi) if "pool" in phases else {}
     # no path of either package calls mlp3: the main paths launch it 0 times
     # (render_cli asserts its own 0)
     if row3["launches"] != 0:
@@ -3497,7 +3747,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     print(smi)
-    emit({"kernels": [row, row3]})
+    emit({"kernels": [row, row3, row_pool]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -2,9 +2,11 @@
 
 Every ``csrc/*.cu`` file is compiled for Hopper (``sm_90a``) into one
 shared library with a plain C interface, named by a hash of the sources,
-in ``panogrf_tpu_torch/_build/`` (ignored by git).  The build runs at
-first use in the process; a library whose sources have not changed is
-reused.  Nothing here runs when the module is imported.
+in ``panogrf_tpu_torch/_build/`` (ignored by git), with nvcc's output
+(ptxas's registers and spills) beside it in a ``.log`` of the same name.
+The build runs at first use in the process; a library whose sources have
+not changed is reused, and its log read back.  Nothing here runs when the
+module is imported.
 """
 
 from __future__ import annotations
@@ -43,6 +45,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.panogrf_mlp2.restype = i
     lib.panogrf_mlp3.argtypes = [p] * 8 + [i] * 10 + [p]
     lib.panogrf_mlp3.restype = i
+    lib.panogrf_cross_view_pool.argtypes = [p] * 8 + [i] * 4 + [p]
+    lib.panogrf_cross_view_pool.restype = i
     return lib
 
 
@@ -59,17 +63,23 @@ def load_library() -> ctypes.CDLL:
     digest.update(" ".join(NVCC_FLAGS).encode())
     BUILD_DIR.mkdir(exist_ok=True)
     lib_path = BUILD_DIR / f"libpanogrf_kernels_{digest.hexdigest()[:16]}.so"
+    log_path = lib_path.with_suffix(".log")
     t0 = time.perf_counter()
-    log = ""
-    if not lib_path.exists():
+    reused = lib_path.exists()
+    if reused:
+        log = log_path.read_text() if log_path.exists() else ""
+    else:
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
         res = subprocess.run(cmd, capture_output=True, text=True)
         log = res.stdout + res.stderr
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
+        tmp_log = log_path.with_suffix(f".{os.getpid()}.logtmp")
+        tmp_log.write_text(log)
+        os.replace(tmp_log, log_path)
         os.replace(tmp, lib_path)
-    BUILD_INFO.update(path=str(lib_path), log=log,
+    BUILD_INFO.update(path=str(lib_path), log=log, reused=reused,
                       seconds=time.perf_counter() - t0,
                       sources=[str(s.relative_to(_PKG.parent))
                                for s in sources])

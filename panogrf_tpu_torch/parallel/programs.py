@@ -61,10 +61,15 @@ def _tensors(tree, dev):
 
 
 def _launches(mesh) -> dict:
-    """Each rank's launches since the last reset, by kernel and variant."""
+    """Each rank's launches since the last reset, by kernel and variant,
+    and its cross-view pools by path (kernel, plain)."""
     return {"mlp2": gather_counts(fused_mlp.MLP2_LAUNCHES, mesh),
             "mlp2_lanes": gather_counts(
                 fused_mlp.VARIANT_LAUNCHES["mlp2_lanes"], mesh),
+            "pool_fused": gather_counts(
+                fused_mlp.VARIANT_LAUNCHES["pool_fused"], mesh),
+            "pool_plain": gather_counts(
+                fused_mlp.VARIANT_LAUNCHES["pool_plain"], mesh),
             "mlp3": gather_counts(fused_mlp.MLP3_LAUNCHES, mesh)}
 
 

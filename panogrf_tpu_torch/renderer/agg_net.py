@@ -5,7 +5,9 @@ pools appearance features across reference views, runs a 4-head attention
 along the samples of each ray and emits density and view-blended RGB.
 Module and parameter names follow the reference PyTorch layout
 (``prob_embed.0``, ``agg_impl.base_fc.0``, ``agg_impl.ray_attention.w_qs``,
-...).  ``_Seq`` is where the ``mlp2`` CUDA kernel enters the path.
+...).  ``_Seq`` is where the ``mlp2`` CUDA kernel enters the path, and
+``IBRNetWithNeuRay.forward`` where the ``cross_view_pool`` kernel takes the
+place of ``pool_reference``.
 ``ablate_attention`` (measurement only, ``tools/bench.py --ablate attn``)
 passes the pooled features by the ray attention, whose parameters stay.
 """
@@ -17,6 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from panogrf_tpu_torch.ops.kernels import cross_view_pool as cvp
+from panogrf_tpu_torch.ops.kernels import fused_mlp
 from panogrf_tpu_torch.ops.kernels.fused_mlp import mlp2_batched
 from panogrf_tpu_torch.utils.spans import span
 
@@ -185,6 +189,12 @@ class IBRNetWithNeuRay(nn.Module):
     Inputs are (nr, dn, v, c) ray-major, or (qn*dn, rn, v, c) depth-major
     with ``dnr_dims = (qn, dn, rn)``; only the pooled 16/3/1-channel
     outputs are transposed to ray-major for the attention.
+
+    The cross-view pool runs as the ``cross_view_pool`` kernel for bfloat16
+    CUDA inputs at in_feat_ch 32 and neuray_in_dim 32 with 2 to 4 views
+    when no gradient is taken (grad off, or nothing requires it); every
+    other call runs ``pool_reference``.  ``fused_mlp.VARIANT_LAUNCHES``
+    counts the two paths (``pool_fused``, ``pool_plain``).
     """
 
     def __init__(self, neuray_in_dim: int = 32, in_feat_ch: int = 32,
@@ -198,6 +208,51 @@ class IBRNetWithNeuRay(nn.Module):
         self.ray_attention = MultiHeadAttention()
         self.out_geometry_fc = _Seq((16, 16, 1), final_act="relu")
         self._pos = {}          # (dn, device, dtype) -> position table
+        self._packed = None     # (key, the kernel's packed pool weights)
+        self._register_load_state_dict_pre_hook(
+            IBRNetWithNeuRay._drop_packed, with_module=True)
+
+    def _drop_packed(self, *args) -> None:
+        self._packed = None
+
+    def _pool_params(self) -> list:
+        return [p for name in _POOL_DIMS
+                for p in getattr(self, name).parameters()]
+
+    def packed_pool_weights(self, like: torch.Tensor) -> torch.Tensor:
+        """The pool's weights packed for the kernel on ``like``'s device,
+        packed once and again only after a pool parameter changes or
+        moves: ``load_state_dict`` drops the packing, and an optimizer
+        step or any other in-place update bumps the parameter's
+        ``_version``.  Parameters made under ``torch.inference_mode``
+        keep no version counter, so an in-place update of one (inside
+        inference mode) other than through ``load_state_dict`` is not
+        seen."""
+        ps = self._pool_params()
+        key = (like.device, like.dtype,
+               tuple((p.data_ptr(), None if p.is_inference() else p._version)
+                     for p in ps))
+        if self._packed is None or self._packed[0] != key:
+            with torch.no_grad():
+                packed = cvp.pack_pool_weights(
+                    {name: _linears(getattr(self, name), ps[0].dtype)
+                     for name in _POOL_DIMS}).to(like.device)
+            self._packed = (key, packed)
+        return self._packed[1]
+
+    def _kernel_inputs(self, ts: list) -> list | None:
+        """The pool's inputs as the kernel takes them, or None when the
+        call runs ``pool_reference``.  The choice rests on the device, the
+        dtype, gradients, the views and the widths alone (the kernel's are
+        in_feat_ch 32 and neuray_in_dim 32: ``cvp.takes`` checks them); an
+        input that is not contiguous or not 16-byte aligned is copied into
+        fresh storage for the kernel (``cvp.laid_out``)."""
+        if ts[0].device.type != "cuda" or ts[0].dtype != torch.bfloat16:
+            return None
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (*ts, *self._pool_params())):
+            return None
+        return [cvp.laid_out(t) for t in ts] if cvp.takes(*ts) else None
 
     def _pos_encoding(self, dn: int, like: torch.Tensor) -> torch.Tensor:
         """The (dn, 16) position table for the pass's sample count (it
@@ -217,16 +272,20 @@ class IBRNetWithNeuRay(nn.Module):
         else:
             nr, dn = a0, a1
         dt = rgb_feat.dtype
-        params = {name: _linears(getattr(self, name), dt)
-                  for name in _POOL_DIMS}
-
-        def flat(t):
-            return t.reshape(a0 * a1, v, t.shape[-1])
-
+        pool_in = [t.reshape(a0 * a1, v, t.shape[-1])
+                   for t in (rgb_feat, neuray_feat, ray_diff, mask)]
         with span("agg.pool"):
-            geo, rgb_out, nvalid = pool_reference(
-                flat(rgb_feat), flat(neuray_feat), flat(ray_diff), flat(mask),
-                params, self.geometry_only)
+            kernel_in = self._kernel_inputs(pool_in)
+            if kernel_in is not None:
+                geo, rgb_out, nvalid = cvp.cross_view_pool(
+                    *kernel_in, self.packed_pool_weights(rgb_feat),
+                    self.geometry_only)
+            else:
+                fused_mlp.VARIANT_LAUNCHES["pool_plain"] += 1
+                params = {name: _linears(getattr(self, name), dt)
+                          for name in _POOL_DIMS}
+                geo, rgb_out, nvalid = pool_reference(
+                    *pool_in, params, self.geometry_only)
         if dnr_dims is not None:
             def to_ray_major(t):
                 c = t.shape[-1]

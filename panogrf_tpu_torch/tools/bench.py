@@ -12,8 +12,9 @@ depth given, random weights from seed 0) through
 ``value`` (the median ms/frame of 3 runs after a warm-up, timed with CUDA
 events), ``unit``, ``runs`` and their ``spread``, ``rays_per_sec`` and
 ``vs_baseline`` (null: the JAX tool's 1.0 s/frame baseline was set for
-another chip), the ``mlp2`` kernel's launches in one frame, and the
-device's name.  The default run also times the turbo point
+another chip), the ``mlp2`` kernel's launches in one frame and its
+cross-view pools by path (``pool_fused_launches``, ``pool_plain_launches``),
+and the device's name.  The default run also times the turbo point
 (``turbo_ms_per_frame``); ``--video-batch B`` times B poses per pass
 (``render_video_device``, ``video_ms_per_frame``); ``--with-depth-stack``
 times the per-scene cost, the frozen UniFuse + MVS stack and
@@ -365,6 +366,8 @@ def main(argv=None) -> dict:
               "device": torch.cuda.get_device_name(dev) if not on_cpu
               else "cpu", "mlp2_launches": launches["mlp2"],
               "mlp2_lanes_launches": launches["mlp2_lanes"],
+              "pool_fused_launches": launches["pool_fused"],
+              "pool_plain_launches": launches["pool_plain"],
               "mlp3_launches": launches["mlp3"]}
 
     if (args.preset == "serving" and not args.ablate and not args.diner
@@ -399,6 +402,8 @@ def main(argv=None) -> dict:
         result["video_batch"] = B
         result["video_mlp2_launches"] = vl["mlp2"]
         result["video_mlp2_lanes_launches"] = vl["mlp2_lanes"]
+        result["video_pool_fused_launches"] = vl["pool_fused"]
+        result["video_pool_plain_launches"] = vl["pool_plain"]
 
     if args.roofline and not args.diner and not args.ablate:
         result.update(roofline(model, kw, ref_info, c2w, chunk, clr, dev))

@@ -99,11 +99,13 @@ class _StandIn:
 def test_every_c_entry_point_is_declared():
     declared = _build._declare(_StandIn())
     entry = _c_entry_points()
-    assert set(entry) == {"panogrf_mlp2", "panogrf_mlp3"}
+    assert set(entry) == {"panogrf_mlp2", "panogrf_mlp3",
+                          "panogrf_cross_view_pool"}
     assert set(entry) == {k for k in vars(declared) if k.startswith("panogrf_")}
 
 
-@pytest.mark.parametrize("fn", ["panogrf_mlp2", "panogrf_mlp3"])
+@pytest.mark.parametrize("fn", ["panogrf_mlp2", "panogrf_mlp3",
+                                "panogrf_cross_view_pool"])
 def test_c_entry_point_matches_ctypes_argtypes(fn):
     """The same number of arguments, ``c_void_p`` for each pointer (and the
     stream), ``c_int`` for each int, an int result."""
@@ -113,6 +115,37 @@ def test_c_entry_point_matches_ctypes_argtypes(fn):
     want = [ctypes.c_void_p if k == "pointer" else ctypes.c_int for k in kinds]
     assert declared.argtypes == want
     assert declared.restype is ctypes.c_int
+
+
+def test_build_log_is_kept_beside_the_library(tmp_path, monkeypatch):
+    """nvcc's output (ptxas's registers and spills) is written beside the
+    library it built and read back when a later process reuses that
+    library, so a reused build still reports its kernels' registers."""
+    import ctypes
+    import subprocess
+    log = "ptxas info    : Used 128 registers, 0 bytes spill stores\n"
+    runs = []
+
+    def nvcc(cmd, **kw):
+        runs.append(cmd)
+        out = cmd[cmd.index("-o") + 1]
+        with open(out, "wb") as f:
+            f.write(b"library")
+        return subprocess.CompletedProcess(cmd, 0, stdout=log, stderr="")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "BUILD_INFO", {})
+    monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_build.subprocess, "run", nvcc)
+    monkeypatch.setattr(ctypes, "CDLL", lambda path: path)
+    monkeypatch.setattr(_build, "_declare", lambda lib: lib)
+    for reused in (False, True):
+        monkeypatch.setattr(_build, "_LIB", None)
+        lib = _build.load_library()
+        assert _build.BUILD_INFO["reused"] is reused
+        assert _build.BUILD_INFO["log"] == log
+        assert len(runs) == 1
+    assert sorted(p.name for p in tmp_path.iterdir()) == sorted(
+        [f"{lib.rsplit('/', 1)[1][:-3]}.log", lib.rsplit("/", 1)[1]])
 
 
 class _FakeLib:
