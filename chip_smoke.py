@@ -91,7 +91,12 @@ the wrapper's host cost, then drives the port's two paths at full width
   without ``geometry_only``: against ``pool_reference`` in bfloat16 and in
   float64, timed by CUDA events beside its bytes and FLOP bounds and the
   plain chain, one ``pool_fused`` launch a call, and one a call of
-  ``IBRNetWithNeuRay`` on the card.
+  ``IBRNetWithNeuRay`` on the card;
+* the multi-view model (three references, the fourth view held out) at
+  512x1024: the multi-source depth stack and ``prepare_ref_data``, one
+  4-frame serving pass toward the held-out view (160 ``pool_fused_v3``,
+  no ``pool_plain``), and the V = 3 kernel at 1,048,576 points against
+  ``pool_reference`` and the plain chain's time, with its registers.
 
 Each path checks that it went through its kernels.  Each phase prints one
 JSON line; any failure raises, so the process exits non-zero.  The last
@@ -140,6 +145,7 @@ from panogrf_tpu_torch.parallel.launch import run_ranks
 from panogrf_tpu_torch.renderer import agg_net
 from panogrf_tpu_torch.renderer import diner as diner_mod
 from panogrf_tpu_torch.renderer import full_render, render_ops
+from panogrf_tpu_torch.renderer import poses as render_poses
 from panogrf_tpu_torch.renderer.presets import (PRESET_CHUNK,
                                                 PRESET_COARSE_LOWRES,
                                                 preset_kwargs)
@@ -3601,6 +3607,129 @@ def pool_kernel_group(card: str) -> dict:
     return row
 
 
+MV_REFS, MV_QUERY, MV_SPACING, MV_FRAMES = [0, 1, 2], 3, 0.25, 4
+
+
+def multiview_group(card: str) -> dict:
+    """The multi-view model (``_mv_v4``: three references 0.25 apart, the
+    fourth view held out) on the serving path at 512x1024: the multi-source
+    depth stack (random weights; each reference swept against the other
+    two) and ``prepare_ref_data`` on a 4-view scene, then one
+    ``render_video_device`` pass of 4 poses toward the held-out view at
+    4096-ray chunks under the serving preset, which must pool in the V = 3
+    kernel 160 times and never in the plain chain.  Then the V = 3 kernel
+    at 1,048,576 points against ``pool_reference`` (bfloat16 and float64,
+    as ``pool_kernel_group`` holds V = 2) and timed beside the plain chain
+    and its bytes bound, with ptxas's registers of each instance from the
+    kept build log.  Returns the group's numbers."""
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    ptx = {k: v for k, v in ptxas_kernels(_build.BUILD_INFO["log"]).items()
+           if "cross_view_pool" in k}
+    regs = {v: next((r.get("registers") for k, r in ptx.items()
+                     if f"ILi{v}E" in k), None) for v in (2, 3, 4)}
+    h, w, dh, dw = 512, 1024, 256, 512
+    stack = depth_stack.init_depth_stack(0, (h, w), (dh, dw), device=dev)
+    s = make_multi_view_sample(SphereScene.random(4242, device=dev), h, w,
+                               4, MV_SPACING, seed=17)
+    torch.cuda.synchronize()
+    t_stack = time.perf_counter()
+    pred = depth_stack.stack_depth_for_sample(
+        stack, s, MV_REFS, depth_stack.other_refs(MV_REFS))
+    torch.cuda.synchronize()
+    t_stack = time.perf_counter() - t_stack
+    model = NeuralRayGenRenderer(height=h, width=w, depth_hw=(dh, dw),
+                                 **preset_kwargs("serving"), device=dev,
+                                 generator=torch.Generator().manual_seed(0))
+    model.eval()
+    coords = imgs_info.sample_train_coords(np.random.default_rng(0), h, w,
+                                           8, device=dev)
+    data = imgs_info.build_render_sample_mv(s, coords, MV_REFS, MV_QUERY)
+    ref_info = data["ref_imgs_info"]
+    ref_info["mvs_depth"] = resize_linear(pred["mvs_depth"], (dh, dw),
+                                          axes=(1, 2))
+    ref_data = full_render.prepare_ref_data(model, ref_info, device=dev)
+    c2w = imgs_info.c2w_from_w2c(imgs_info.pose_w2c(
+        s["rots"], s["trans"])).cpu().numpy()
+    path = render_poses.interpolate_c2w(c2w[MV_REFS[0]], c2w[MV_QUERY],
+                                        MV_FRAMES)
+
+    def frames():
+        return full_render.render_video_device(
+            model, ref_data, path, data["que_imgs_info"]["depth_range"],
+            ref_info["depth_range"], chunk=4096, coarse_lowres=2,
+            device=dev)
+    frames()
+    fused_mlp.reset_launches()
+    torch.cuda.synchronize()
+    t_pass = time.perf_counter()
+    rgb = frames()
+    torch.cuda.synchronize()
+    t_pass = time.perf_counter() - t_pass
+    launches = dict(fused_mlp.VARIANT_LAUNCHES)
+    rec = {"phase": "multiview_pass", "card": card, "refs": MV_REFS,
+           "query": MV_QUERY, "frames": MV_FRAMES,
+           "stack_s": t_stack, "pass_s": t_pass,
+           "ms_per_frame": 1e3 * t_pass / MV_FRAMES,
+           "pool_launches": {k: v for k, v in launches.items()
+                             if k.startswith("pool")},
+           "mlp2_lanes": launches["mlp2_lanes"],
+           "finite": bool(torch.isfinite(rgb).all()),
+           "depth_positive_share": float((pred["mvs_depth"] > 0)
+                                         .float().mean()),
+           "ptxas_registers": regs}
+    emit(rec)
+    pts = 4096 * MV_FRAMES * 64
+    if launches["pool_fused_v3"] != 160 or launches["pool_fused"] != 160 \
+            or launches["pool_plain"] != 0 or not rec["finite"] \
+            or launches["pool_points"] != 160 * pts:
+        raise AssertionError(f"multiview pass: {rec}")
+    del ref_data, stack, pred, model, rgb
+
+    torch.manual_seed(0)
+    net = agg_net.IBRNetWithNeuRay().cuda()
+    params = {k: agg_net._linears(getattr(net, k), BF16)
+              for k in agg_net._POOL_DIMS}
+    p64 = {k: [(a.double(), b.double()) for a, b in ls]
+           for k, ls in params.items()}
+    ins = pool_inputs(POOL_POINTS, 3, seed=5)
+    packed = net.packed_pool_weights(ins[0])
+    with torch.inference_mode():
+        def kernel():
+            return cvp.cross_view_pool(*ins, packed)
+
+        def plain():
+            return agg_net.pool_reference(*ins, params)
+        got, ref = kernel(), plain()
+        exact = agg_net.pool_reference(*(t.double() for t in ins), p64)
+        kr = {"phase": "multiview_pool_kernel", "points": POOL_POINTS,
+              "views": 3, "card": card, "registers": regs[3]}
+        ok = torch.equal(got[2].double(), exact[2]) and \
+            all(bool(torch.isfinite(t).all()) for t in got)
+        for name, g, p, e in zip(("geo", "rgb"), got, ref, exact):
+            dk, dp = (g.double() - e).abs(), (p.double() - e).abs()
+            scale = max(e.abs().max().item(), 1.0)
+            kr.update({f"{name}_mean_gap": dk.mean().item(),
+                       f"{name}_plain_mean_gap": dp.mean().item(),
+                       f"{name}_max_gap": dk.max().item(),
+                       f"{name}_plain_max_gap": dp.max().item()})
+            ok = ok and dk.mean() <= 1.25 * dp.mean() + 1e-6 and \
+                dk.max() <= 2 * dp.max() + 2 ** -8 * scale
+        del exact
+        ms = statistics.mean(event_time_ms(kernel, 50) for _ in range(2))
+        plain_ms = event_time_ms(plain, 10)
+        bound, by, nbytes, _ = pool_bounds_ms(POOL_POINTS, 3, False)
+        kr.update({"ms": ms, "plain_ms": plain_ms, "speedup": plain_ms / ms,
+                   "profiler_ms": us_to_ms(profiler_time_us(kernel, 20)),
+                   "bound_ms": bound, "bound_by": by, "bound_bytes": nbytes,
+                   "roofline_pct": 100 * bound / ms,
+                   "group_seconds": time.perf_counter() - t0})
+    emit(kr)
+    if not ok:
+        raise AssertionError(f"multiview pool kernel: {kr}")
+    return {**rec, "kernel": kr}
+
+
 def orbax_group() -> int:
     """Checkpoint input: ``orbax_reads``, ``orbax_render``, and no module
     of JAX, orbax, tensorstore or zstandard in this process.  Returns the
@@ -3619,7 +3748,7 @@ def orbax_group() -> int:
 PHASES = ("kernels", "serving", "training", "depth_stack",
           "depth_training", "render_cli", "video", "mv_ft", "modes",
           "depth_variants", "data", "parallel", "measure", "profile_tools",
-          "orbax", "pool")
+          "orbax", "pool", "multiview")
 
 
 def main(argv=None) -> int:
@@ -3736,6 +3865,12 @@ def main(argv=None) -> int:
     if "orbax" in phases:
         row["launches_orbax_render_cli_eval"] = orbax_group()
     row_pool = pool_kernel_group(smi) if "pool" in phases else {}
+    if "multiview" in phases:
+        mv = multiview_group(smi)
+        if row_pool:
+            row_pool["launches"]["multiview pass"] = \
+                mv["pool_launches"]["pool_fused_v3"]
+            row_pool["ms_v3"] = mv["kernel"]["ms"]
     # no path of either package calls mlp3: the main paths launch it 0 times
     # (render_cli asserts its own 0)
     if row3["launches"] != 0:

@@ -2,9 +2,10 @@
 
 Port of ``panogrf_tpu/models/depth_stack.py``: for every reference view,
 the frozen UniFuse mono net and the frozen MVS net run on the (source,
-reference) panorama pair and predict the reference view's depth; no
-ground-truth depth is read.  The stack runs in eval mode under
-``torch.inference_mode``.
+reference) panorama pair, or on the reference and several sources (the
+multi-view model: one sweep per source, the costs averaged), and predict
+the reference view's depth; no ground-truth depth is read.  The stack
+runs in eval mode under ``torch.inference_mode``.
 
 ``load_depth_stack`` reads reference-layout checkpoints (``.pth``,
 ``.pt``, ``.tar``, ``.ckpt``) straight into the modules, with no
@@ -70,9 +71,11 @@ class DepthStack(nn.Module):
         """Depth of every reference view.
 
         :param ref_imgs: (rfn, H, W, 3); src_imgs (rfn, H, W, 3), the
-            source view paired with each reference.
-        :param ref_w2c: (rfn, 3, 4) and src_w2c (rfn, 3, 4)
-            world-to-camera poses.
+            source view paired with each reference, or (rfn, S, H, W, 3),
+            the S sources each reference is swept against (the MVS net
+            averages their costs).
+        :param ref_w2c: (rfn, 3, 4) and src_w2c (rfn, 3, 4), or
+            (rfn, S, 3, 4) with S sources, world-to-camera poses.
         :return: ``mvs_depth`` (rfn, dh, dw, 1), and with the MVS net
             ``mono_depth`` (rfn, mh, mw, 1) and, when it predicts
             uncertainty, ``mvs_uncert``.
@@ -84,12 +87,23 @@ class DepthStack(nn.Module):
                 depth = resize_linear(mono["pred_depth"], (dh, dw),
                                       axes=(1, 2))
                 return {"mvs_depth": torch.clamp(depth, min=0.0)}
-            # (B, 2, ...) with index 0 = src, 1 = ref
-            panos = torch.stack(
-                [resize_linear(src_imgs, (dh, dw), axes=(1, 2)),
-                 resize_linear(ref_imgs, (dh, dw), axes=(1, 2))], 1)
-            rots = torch.stack([src_w2c[:, :, :3], ref_w2c[:, :, :3]], 1)
-            trans = torch.stack([src_w2c[:, :, 3], ref_w2c[:, :, 3]], 1)
+            ref = resize_linear(ref_imgs, (dh, dw), axes=(1, 2))
+            if src_imgs.dim() == 4:
+                # (B, 2, ...) with index 0 = src, 1 = ref
+                panos = torch.stack(
+                    [resize_linear(src_imgs, (dh, dw), axes=(1, 2)), ref], 1)
+                rots = torch.stack([src_w2c[:, :, :3], ref_w2c[:, :, :3]], 1)
+                trans = torch.stack([src_w2c[:, :, 3], ref_w2c[:, :, 3]], 1)
+            else:
+                # (B, 1 + S, ...) in the MVS net's order [src_0, ref,
+                # src_1, ...]
+                rfn, s = src_imgs.shape[:2]
+                src = resize_linear(src_imgs.flatten(0, 1), (dh, dw),
+                                    axes=(1, 2)).unflatten(0, (rfn, s))
+                panos = torch.cat([src[:, :1], ref[:, None], src[:, 1:]], 1)
+                w2c = torch.cat([src_w2c[:, :1], ref_w2c[:, None],
+                                 src_w2c[:, 1:]], 1)
+                rots, trans = w2c[..., :3], w2c[..., 3]
             out = self.mvs_model(panos, rots, trans, mono["pred_depth"],
                                  mono.get("mono_feat"))
             ret = {"mvs_depth": torch.clamp(out["depth"], min=0.0),
@@ -234,21 +248,32 @@ def load_depth_stack(mono_ckpt: str | None, mvs_ckpt: str | None = None,
     return stack
 
 
+def other_refs(ref_ids) -> list:
+    """Every other reference as the sources of each: refs [0, 1, 2] ->
+    [[1, 2], [0, 2], [0, 1]] (the multi-view model's sweep against all
+    neighbouring views)."""
+    ref_ids = list(ref_ids)
+    return [[r for r in ref_ids if r != ref] for ref in ref_ids]
+
+
 def stack_depth_for_sample(stack: DepthStack, sample: dict, ref_ids,
                            src_ids=None) -> dict:
-    """Run the stack on a scene sample: each reference view is paired with
-    a source view and the stack predicts its depth.
+    """Run the stack on a scene sample: each reference view is swept
+    against its source views and the stack predicts its depth.
 
     :param sample: ``rgb_panos`` (V, H, W, 3), ``rots`` (V, 3, 3),
         ``trans`` (V, 3), on the stack's device.
-    :param src_ids: the source view of each reference; by default the
-        next reference, cyclically (refs (0, 2) -> srcs (2, 0)).
+    :param src_ids: the source view of each reference, or a list of
+        source views per reference (each list as long: e.g.
+        ``other_refs(ref_ids)``); by default the next reference,
+        cyclically (refs (0, 2) -> srcs (2, 0)).
     """
     ref_ids = list(ref_ids)
     if src_ids is None:
         src_ids = [ref_ids[(i + 1) % len(ref_ids)]
                    for i in range(len(ref_ids))]
-    src_ids = list(src_ids)
     w2c = pose_w2c(sample["rots"], sample["trans"])
     imgs = sample["rgb_panos"]
-    return stack(imgs[ref_ids], imgs[src_ids], w2c[ref_ids], w2c[src_ids])
+    # a tensor index: a list of lists would index several dimensions
+    src = torch.as_tensor(src_ids, device=imgs.device)
+    return stack(imgs[ref_ids], imgs[src], w2c[ref_ids], w2c[src])

@@ -155,7 +155,8 @@ class MVSDepthModel(nn.Module):
         feats = feats.reshape(b, v, h4, w4, cdim)
         ref_feats = feats[:, 1]
 
-        with span("mvs.sweep"):
+        srcs = [i for i in range(v) if i != 1]
+        with span("mvs.sweep", f"sources={len(srcs)}"):
             mu4 = resize_linear(mono_depth, (h4, w4), axes=(1, 2))
             if self.magnet_num_samples > 0:
                 ks = magnet_k_list(self.magnet_num_samples,
@@ -172,7 +173,6 @@ class MVSDepthModel(nn.Module):
                                           sigma, self.uniform_in_depth)
 
             # spherical sweep, averaged over the source views
-            srcs = [i for i in range(v) if i != 1]
             cost = sum(batched_sweep_cost(
                 ref_feats, feats[:, si], dvol, rots[:, [si, 1]],
                 trans[:, [si, 1]], self.convention)

@@ -174,5 +174,8 @@ def cross_view_pool(rgb_feat: torch.Tensor, neuray_feat: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"cross_view_pool kernel launch failed (CUDA "
                            f"error {rc})")
-    fused_mlp.VARIANT_LAUNCHES["pool_fused"] += 1
+    launches = fused_mlp.VARIANT_LAUNCHES
+    launches["pool_fused"] += 1
+    launches[f"pool_fused_v{v}"] += 1
+    launches["pool_points"] += n
     return geo, rgb, nvalid

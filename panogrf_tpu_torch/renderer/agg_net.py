@@ -194,7 +194,10 @@ class IBRNetWithNeuRay(nn.Module):
     CUDA inputs at in_feat_ch 32 and neuray_in_dim 32 with 2 to 4 views
     when no gradient is taken (grad off, or nothing requires it); every
     other call runs ``pool_reference``.  ``fused_mlp.VARIANT_LAUNCHES``
-    counts the two paths (``pool_fused``, ``pool_plain``).
+    counts the two paths (``pool_fused``, ``pool_plain``), the kernel's
+    launches by view count (``pool_fused_v2`` to ``pool_fused_v4``) and
+    the points they took (``pool_points``): host integers read from the
+    shapes.
     """
 
     def __init__(self, neuray_in_dim: int = 32, in_feat_ch: int = 32,
