@@ -162,3 +162,24 @@ def test_cross_view_pool_roofline_reader():
     assert read(SimpleNamespace(driver=SimpleNamespace(
         counters=lambda: {"mlp2_launches": counters}), summary=empty)) \
         is None
+
+
+def test_frame_mfu_reader_counts_every_reference():
+    """The multi-view frame's FLOPs are the roofline model's at as many
+    views as the configuration has references (three), more than the
+    two-view reader counts for the same frame; none without ``frame_ms``."""
+    cell = manifest.Cell(WORKLOAD)
+    cfg, r = cell.config, cell.config["renderer"]
+    read = manifest.reader("frame_mfu.mv_walkthrough")
+    ctx = SimpleNamespace(cell=cell, e2e={"frame_ms": 552.0})
+    model = roofline.frame_model(
+        cfg["height"], cfg["width"], r["depth_sample_num"],
+        r["fine_depth_sample_num"], r["gather_stride"],
+        r["gather_stride_fine"], v=3,
+        coarse_geometry_only=r["coarse_geometry_only"],
+        lowres_coarse=cfg["coarse_lowres"], dtype=r["compute_dtype"])
+    peak = roofline.PEAK_FLOPS[r["compute_dtype"]]
+    assert read(ctx) == pytest.approx(
+        100.0 * model["agg_flops"] / (0.552 * peak))
+    assert read(ctx) > manifest.reader("frame_mfu.walkthrough")(ctx)
+    assert read(SimpleNamespace(cell=cell, e2e={})) is None

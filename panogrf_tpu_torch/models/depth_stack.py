@@ -87,23 +87,19 @@ class DepthStack(nn.Module):
                 depth = resize_linear(mono["pred_depth"], (dh, dw),
                                       axes=(1, 2))
                 return {"mvs_depth": torch.clamp(depth, min=0.0)}
-            ref = resize_linear(ref_imgs, (dh, dw), axes=(1, 2))
             if src_imgs.dim() == 4:
-                # (B, 2, ...) with index 0 = src, 1 = ref
-                panos = torch.stack(
-                    [resize_linear(src_imgs, (dh, dw), axes=(1, 2)), ref], 1)
-                rots = torch.stack([src_w2c[:, :, :3], ref_w2c[:, :, :3]], 1)
-                trans = torch.stack([src_w2c[:, :, 3], ref_w2c[:, :, 3]], 1)
-            else:
-                # (B, 1 + S, ...) in the MVS net's order [src_0, ref,
-                # src_1, ...]
-                rfn, s = src_imgs.shape[:2]
-                src = resize_linear(src_imgs.flatten(0, 1), (dh, dw),
-                                    axes=(1, 2)).unflatten(0, (rfn, s))
-                panos = torch.cat([src[:, :1], ref[:, None], src[:, 1:]], 1)
-                w2c = torch.cat([src_w2c[:, :1], ref_w2c[:, None],
-                                 src_w2c[:, 1:]], 1)
-                rots, trans = w2c[..., :3], w2c[..., 3]
+                # one source a reference: S = 1
+                src_imgs, src_w2c = src_imgs[:, None], src_w2c[:, None]
+            # (B, 1 + S, ...) in the MVS net's order [src_0, ref, src_1, ...]
+            rfn, s = src_imgs.shape[:2]
+            ref = resize_linear(ref_imgs, (dh, dw), axes=(1, 2))
+            src = resize_linear(src_imgs.flatten(0, 1), (dh, dw),
+                                axes=(1, 2)).unflatten(0, (rfn, s))
+            panos = torch.cat([src[:, :1], ref[:, None], src[:, 1:]], 1)
+            w2c = torch.cat([src_w2c[:, :1], ref_w2c[:, None],
+                             src_w2c[:, 1:]], 1)
+            rots = w2c[..., :3].contiguous()
+            trans = w2c[..., 3].contiguous()
             out = self.mvs_model(panos, rots, trans, mono["pred_depth"],
                                  mono.get("mono_feat"))
             ret = {"mvs_depth": torch.clamp(out["depth"], min=0.0),

@@ -24,16 +24,15 @@ model computes it: each reference is swept against every other reference
 true depth is read.  Checkpoints are read as ``tools/render.py`` reads
 them; the nets without one have random weights.
 
-``--preset serving`` (or ``turbo``, ``exact``) builds the renderer at the
-preset's flags and draws each scene's frames through
-``full_render.render_video_device``: ``--frame-batch`` B poses in one
-pass, on the path from the first reference to the query, whose last pose
-is the query (B = 1: the query alone).  Every frame is written as
-``<i>-frame<k>.png``, and the query's is scored.  ``--chunk`` is then
-the preset's unless given.
+``--preset serving`` builds the renderer at the serving preset's flags
+and draws each scene's frames through ``full_render.render_video_device``:
+``--frame-batch`` B poses in one pass, on the path from the first
+reference to the query, whose last pose is the query (B = 1: the query
+alone).  Every frame is written as ``<i>-frame<k>.png``, and the query's
+is scored.  ``--chunk`` is then the preset's unless given.
 
 It runs on the CUDA device and raises without one unless ``--device cpu``
-is given (on the CPU the presets compute in float32).
+is given (on the CPU the preset computes in float32).
 """
 
 from __future__ import annotations
@@ -93,7 +92,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="references' depth from the multi-source depth "
                          "stack (random weights without checkpoints)")
     ap.add_argument("--preset", default=None,
-                    choices=["exact", "serving", "turbo"],
+                    choices=["serving"],
                     help="render through render_video_device at this "
                          "preset's flags")
     ap.add_argument("--frame-batch", type=int, default=1,

@@ -11,12 +11,11 @@ While a profiler records, a span opens
 the trace's own clock beside the kernels it launched; it times the
 region's device work by a pair of CUDA events on the current stream (by
 the host clock where CUDA is not in use: there the CPU is the device) and
-appends ``(name, parent, start, end, note)`` to this module's store, the
-parent being the enclosing open span.  Each name's entries are its call
-count.
+appends ``(name, parent, start, end)`` to this module's store, the parent
+being the enclosing open span.  Each name's entries are its call count.
 The store grows while a profiler records; ``reset()`` empties it.
 
-``device_ms()``, ``summary()`` and ``notes()`` read the store.
+``device_ms()`` and ``summary()`` read the store.
 """
 
 from __future__ import annotations
@@ -30,7 +29,7 @@ from torch.autograd import profiler as _profiler
 PREFIX = "panogrf."
 
 _OFF = contextlib.nullcontext()
-_store: list = []     # (name, parent or None, start, end, note or None)
+_store: list = []     # (name, parent or None, start, end)
 _open: list = []      # names of the open spans, innermost last
 
 
@@ -38,7 +37,7 @@ def span(name: str, note: str | None = None):
     """A context that marks ``panogrf.<name>`` while a profiler records
     (see the module's docstring), else the shared null context.  ``note``,
     a short text about the call (e.g. ``"sources=2"``), goes to the
-    range's arguments in the trace and to the store (``notes``)."""
+    range's arguments in the trace."""
     if not _profiler._is_profiler_enabled:
         return _OFF
     return _Span(PREFIX + name, note)
@@ -61,7 +60,7 @@ class _Span:
     def __exit__(self, *exc) -> bool:
         _open.pop()
         _store.append((self.name, _open[-1] if _open else None,
-                       self.start, _stamp(self.cuda), self.note))
+                       self.start, _stamp(self.cuda)))
         self.mark.__exit__(*exc)
         return False
 
@@ -91,7 +90,7 @@ def device_ms() -> dict:
     if any(not isinstance(e[2], float) for e in _store):
         torch.cuda.synchronize()
     out: dict = {}
-    for name, _, start, end, _ in _store:
+    for name, _, start, end in _store:
         out.setdefault(name, []).append(_ms(start, end))
     return out
 
@@ -104,13 +103,8 @@ def summary() -> list:
     rows = {n: {"name": n, "calls": len(v), "ms": sum(v), "self_ms": sum(v)}
             for n, v in per.items()}
     seen: dict = {}
-    for name, parent, *_ in _store:
+    for name, parent, _, _ in _store:
         i = seen[name] = seen.get(name, -1) + 1
         if parent is not None:
             rows[parent]["self_ms"] -= per[name][i]
     return list(rows.values())
-
-
-def notes(name: str) -> list:
-    """The note of each call of the full name ``name``, in call order."""
-    return [e[4] for e in _store if e[0] == name]

@@ -22,8 +22,9 @@ from h100bench.drivers.gen2v import Program
 from h100bench.drivers.mv_walkthrough import MVReference
 from h100bench.reference.depth_mv import stack_forward_mv
 from h100bench.reference.renderer import full_render as ref_full_render
-from panogrf_tpu_torch.models.depth_stack import (other_refs,
+from panogrf_tpu_torch.models.depth_stack import (other_refs, run_mono,
                                                   stack_depth_for_sample)
+from panogrf_tpu_torch.nn.blocks import resize_linear
 from panogrf_tpu_torch.ops.kernels import _build
 from panogrf_tpu_torch.ops.kernels import cross_view_pool as cvp
 from panogrf_tpu_torch.ops.kernels import fused_mlp
@@ -105,16 +106,30 @@ def test_multi_source_stack_matches_the_reference(scene):
 
 
 def test_one_source_is_the_two_view_path_exactly(scene):
-    """(rfn, 1, H, W, 3) sources give what (rfn, H, W, 3) sources give,
-    bit for bit."""
+    """(rfn, H, W, 3) and (rfn, 1, H, W, 3) sources both give, bit for
+    bit, the two-view stack: the MVS net on each (source, reference) pair
+    stacked with the source first."""
     x, stack = scene.x, scene.program.stack
     ref, rw = x["ref_imgs"][:2], x["ref_w2c"][:2]
     src, sw = x["src_imgs"][:2, 0], x["src_w2c"][:2, 0]
-    two = stack(ref, src, rw, sw)
-    one = stack(ref, src[:, None], rw, sw[:, None])
-    assert set(one) == set(two)
-    for k in two:
-        assert torch.equal(one[k], two[k]), k
+    dhw = tuple(CFG["depth_hw"])
+    with torch.inference_mode():
+        mono = run_mono(stack.mono_model, ref, stack.mono_hw)
+        panos = torch.stack([resize_linear(src, dhw, axes=(1, 2)),
+                             resize_linear(ref, dhw, axes=(1, 2))], 1)
+        rots = torch.stack([sw[:, :, :3], rw[:, :, :3]], 1)
+        trans = torch.stack([sw[:, :, 3], rw[:, :, 3]], 1)
+        out = stack.mvs_model(panos, rots, trans, mono["pred_depth"],
+                              mono.get("mono_feat"))
+    want = {"mvs_depth": torch.clamp(out["depth"], min=0.0),
+            "mono_depth": mono["pred_depth"]}
+    if "pred_final" in out:
+        want["mvs_uncert"] = out["pred_final"][..., 1:]
+    for got in (stack(ref, src, rw, sw),
+                stack(ref, src[:, None], rw, sw[:, None])):
+        assert set(got) == set(want)
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
 
 
 def test_three_reference_frame_matches_the_reference_renderer(scene):
@@ -140,16 +155,22 @@ def test_three_reference_frame_matches_the_reference_renderer(scene):
     assert float((got - want).abs().max()) <= FRAME_TOL
 
 
-def test_sweep_span_notes_the_sources(scene):
-    """Under a profiler, ``panogrf.mvs.sweep`` records how many sources
-    each reference was swept against."""
+def test_sweep_span_notes_the_sources(scene, monkeypatch):
+    """Under a profiler, ``panogrf.mvs.sweep`` gives its range the number
+    of sources each reference was swept against."""
     x, stack = scene.x, scene.program.stack
-    spans.reset()
+    record = torch.profiler.record_function
+    notes = []
+
+    def spy(name, args=None):
+        if name == "panogrf.mvs.sweep":
+            notes.append(args)
+        return record(name, args)
+    monkeypatch.setattr(torch.profiler, "record_function", spy)
     with profile(activities=[ProfilerActivity.CPU]):
         stack(x["ref_imgs"], x["src_imgs"], x["ref_w2c"], x["src_w2c"])
         stack(x["ref_imgs"], x["src_imgs"][:, 0], x["ref_w2c"],
               x["src_w2c"][:, 0])
-    notes = spans.notes("panogrf.mvs.sweep")
     spans.reset()
     assert notes == ["sources=2", "sources=1"]
 
