@@ -96,11 +96,20 @@ the wrapper's host cost, then drives the port's two paths at full width
   512x1024: the multi-source depth stack and ``prepare_ref_data``, one
   4-frame serving pass toward the held-out view (160 ``pool_fused_v3``,
   no ``pool_plain``), and the V = 3 kernel at 1,048,576 points against
-  ``pool_reference`` and the plain chain's time, with its registers.
+  ``pool_reference`` and the plain chain's time, with its registers;
+* the ray attention kernel (``csrc/ray_attention.cu``) at the
+  walkthrough's call, 16,384 rays of 64 samples in bfloat16, depth-major
+  and ray-major: against the plain chain and the attention in float64,
+  timed by CUDA events beside its bounds, the plain chain and one PyTorch
+  yardstick (``scaled_dot_product_attention`` and ``layer_norm``), with
+  its registers, and one launch a depth-major ``IBRNetWithNeuRay`` call.
 
-Each path checks that it went through its kernels.  Each phase prints one
-JSON line; any failure raises, so the process exits non-zero.  The last
-three lines are the card's name and power limit, the kernel table and
+Each path checks that it went through its kernels: each bfloat16
+aggregation call without gradients pools and attends through the kernels,
+each float32 or gradient-carrying one through the plain versions.  Each
+phase prints one JSON line; any failure raises, so the process exits
+non-zero.  The last three lines are the card's name and power limit, the
+kernel table and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 rest of the repository, it fails before printing a result.
 ``--phases`` runs a subset of the phase groups (then it prints no
@@ -140,6 +149,7 @@ from panogrf_tpu_torch.nn import blocks as tblocks
 from panogrf_tpu_torch.nn.blocks import resize_linear
 from panogrf_tpu_torch.ops.kernels import _build, fused_mlp
 from panogrf_tpu_torch.ops.kernels import cross_view_pool as cvp
+from panogrf_tpu_torch.ops.kernels import ray_attention as rak
 from panogrf_tpu_torch.parallel import programs
 from panogrf_tpu_torch.parallel.launch import run_ranks
 from panogrf_tpu_torch.renderer import agg_net
@@ -537,19 +547,22 @@ def grad_check() -> None:
 
 # the cross_view_pool kernel's launches on each main path that
 # assert_specialised checked, by path (a path's first run): the kernel
-# table's launches
+# table's launches; ATTN_LAUNCHES the same of the ray_attention kernel
 POOL_LAUNCHES = {}
+ATTN_LAUNCHES = {}
 
 
 def assert_specialised(what: str, mlp2_launches: int, variants: dict,
                        pool: str | None) -> None:
     """Every ``mlp2`` launch of a main-path run went to the specialised
     variant (``lanes``), none to ``generic``.  Each aggregation call
-    launches ``out_geometry_fc``'s mlp2 once, and its cross-view pool ran
-    as ``pool`` says: "fused" (bfloat16 without gradients) the
-    ``cross_view_pool`` kernel every call and ``pool_reference`` never,
-    "plain" (float32, or gradients taken) ``pool_reference`` every call
-    and the kernel never; None when the caller checks the pools itself."""
+    launches ``out_geometry_fc``'s mlp2 once, and its cross-view pool and
+    ray attention ran as ``pool`` says: "fused" (bfloat16 without
+    gradients) the ``cross_view_pool`` and ``ray_attention`` kernels every
+    call and ``pool_reference`` and ``MultiHeadAttention.forward`` never,
+    "plain" (float32, or gradients taken) the plain versions every call
+    and the kernels never; None when the caller checks the pools and
+    attentions itself."""
     if variants["mlp2_lanes"] != mlp2_launches or variants["mlp2_generic"]:
         raise AssertionError(f"{what}: mlp2 variants {variants}, "
                              f"{mlp2_launches} launches")
@@ -559,8 +572,12 @@ def assert_specialised(what: str, mlp2_launches: int, variants: dict,
     if (variants["pool_fused"], variants["pool_plain"]) != want:
         raise AssertionError(f"{what}: cross-view pools {variants}, want "
                              f"{pool} in each of {mlp2_launches} calls")
-    POOL_LAUNCHES.setdefault(re.sub(r" step \d+$", " a step", what),
-                             variants["pool_fused"])
+    if (variants["attn_fused"], variants["attn_plain"]) != want:
+        raise AssertionError(f"{what}: ray attentions {variants}, want "
+                             f"{pool} in each of {mlp2_launches} calls")
+    path = re.sub(r" step \d+$", " a step", what)
+    POOL_LAUNCHES.setdefault(path, variants["pool_fused"])
+    ATTN_LAUNCHES.setdefault(path, variants["attn_fused"])
 
 
 # ---------------------------------------------------------------------------
@@ -3013,18 +3030,22 @@ def bench_tool(card: str) -> dict:
               "tool_seconds": seconds, "mlp2_launches_in_call": calls,
               "card": card})
         # every run is bfloat16 without gradients: each aggregation call
-        # (one mlp2 launch) pools through the cross_view_pool kernel
+        # (one mlp2 launch) pools through the cross_view_pool kernel and
+        # attends through the ray_attention kernel (none under --ablate
+        # attn, which passes the attention by)
+        attn = 0 if run == "ablate_attn" else expected
         counts = [(rec["mlp2_launches"], rec["mlp2_lanes_launches"],
-                   rec["pool_fused_launches"], rec["pool_plain_launches"])]
+                   rec["pool_fused_launches"], rec["pool_plain_launches"],
+                   rec["attn_fused_launches"], rec["attn_plain_launches"])]
         if "video_batch" in rec:
-            counts.append((rec["video_mlp2_launches"],
-                           rec["video_mlp2_lanes_launches"],
-                           rec["video_pool_fused_launches"],
-                           rec["video_pool_plain_launches"]))
-        if any(c != (expected, expected, expected, 0) for c in counts) or \
+            counts.append(tuple(rec[f"video_{k}_launches"] for k in (
+                "mlp2", "mlp2_lanes", "pool_fused", "pool_plain",
+                "attn_fused", "attn_plain")))
+        if any(c != (expected, expected, expected, 0, attn, 0)
+               for c in counts) or \
                 rec["mlp3_launches"] or (expected and not calls):
-            raise AssertionError(f"bench {run}: mlp2 (all, lanes) and "
-                                 f"pools (fused, plain) {counts},"
+            raise AssertionError(f"bench {run}: mlp2 (all, lanes), pools "
+                                 f"and attentions (fused, plain) {counts},"
                                  f" expected {expected}; mlp3 "
                                  f"{rec['mlp3_launches']}")
         times = [rec["value"], *rec["runs"]] + [
@@ -3039,6 +3060,7 @@ def bench_tool(card: str) -> dict:
             raise AssertionError(f"bench {run}: agg MFU {rec['agg_mfu']}")
         launches[run] = rec["mlp2_launches"]
         POOL_LAUNCHES[f"bench {run}"] = rec["pool_fused_launches"]
+        ATTN_LAUNCHES[f"bench {run}"] = rec["attn_fused_launches"]
     return launches
 
 
@@ -3362,14 +3384,19 @@ def profile_tools_group() -> dict:
                                  f"{rec['mlp2_launches']}, expected {want};"
                                  f" variants {variants}")
         if tool is profile_honest:
-            # bfloat16: each aggregation call pools through the kernel,
-            # and the attn_tail stage launches mlp2 with no pool
+            # bfloat16: each aggregation call pools and attends through
+            # the kernels, and the attn_tail stage (its own plain
+            # MultiHeadAttention, counted by neither) launches mlp2 with
+            # no pool
             assert_specialised(f"profile_tools {run}", calls, variants, None)
-            if variants["pool_plain"] or \
-                    not 0 < variants["pool_fused"] < calls:
+            if variants["pool_plain"] or variants["attn_plain"] or \
+                    not 0 < variants["pool_fused"] < calls or \
+                    variants["attn_fused"] != variants["pool_fused"]:
                 raise AssertionError(f"profile_tools {run}: cross-view "
-                                     f"pools {variants}, {calls} mlp2")
+                                     f"pools and attentions {variants}, "
+                                     f"{calls} mlp2")
             POOL_LAUNCHES[f"profile_tools {run}"] = variants["pool_fused"]
+            ATTN_LAUNCHES[f"profile_tools {run}"] = variants["attn_fused"]
         else:
             # float32 (profile_render), or no aggregation (profile_mvs)
             assert_specialised(f"profile_tools {run}", calls, variants,
@@ -3598,6 +3625,7 @@ def pool_kernel_group(card: str) -> dict:
         out = net.to(BF16)(*x)
         launches = dict(fused_mlp.VARIANT_LAUNCHES)
     if launches["pool_fused"] != 1 or launches["pool_plain"] != 0 or \
+            launches["attn_fused"] != 1 or launches["attn_plain"] != 0 or \
             not bool(torch.isfinite(out).all()):
         raise AssertionError(f"IBRNetWithNeuRay on the card: {launches}")
     # the kernel's launches on each main path that ran before this group,
@@ -3673,6 +3701,8 @@ def multiview_group(card: str) -> dict:
            "ms_per_frame": 1e3 * t_pass / MV_FRAMES,
            "pool_launches": {k: v for k, v in launches.items()
                              if k.startswith("pool")},
+           "attn_launches": {k: v for k, v in launches.items()
+                             if k.startswith("attn")},
            "mlp2_lanes": launches["mlp2_lanes"],
            "finite": bool(torch.isfinite(rgb).all()),
            "depth_positive_share": float((pred["mvs_depth"] > 0)
@@ -3682,6 +3712,7 @@ def multiview_group(card: str) -> dict:
     pts = 4096 * MV_FRAMES * 64
     if launches["pool_fused_v3"] != 160 or launches["pool_fused"] != 160 \
             or launches["pool_plain"] != 0 or not rec["finite"] \
+            or launches["attn_fused"] != 160 or launches["attn_plain"] != 0 \
             or launches["pool_points"] != 160 * pts:
         raise AssertionError(f"multiview pass: {rec}")
     del ref_data, stack, pred, model, rgb
@@ -3730,6 +3761,159 @@ def multiview_group(card: str) -> dict:
     return {**rec, "kernel": kr}
 
 
+# the walkthrough's ray attention call: 4 depth-major frames of 4096 rays,
+# 64 samples a ray (1,048,576 points)
+ATTN_RAYS, ATTN_SAMPLES, ATTN_RN = 16384, 64, 4096
+
+
+def attn_operands(nr: int, dn: int, rn: int, seed: int) -> tuple:
+    """bfloat16 geo (nr dn, 16) and nvalid (nr dn, 1) on the card in the
+    row order (nr / rn, dn, rn): nvalid from 0 to 3 (about half the query
+    rows masked), every row of ray 0 masked."""
+    g = torch.Generator("cuda").manual_seed(seed)
+    geo = (torch.randn(nr * dn, 16, device="cuda", generator=g) * 0.8) \
+        .to(BF16)
+    nvalid = torch.randint(0, 4, (nr * dn, 1), device="cuda",
+                           generator=g).to(BF16)
+    nvalid.view(nr // rn, dn, rn)[0, :, 0] = 0
+    return geo, nvalid
+
+
+def attn_bounds_ms(nr: int, dn: int) -> tuple:
+    """(bound ms, what bounds it, bytes, FLOPs) of one attention call: geo
+    and nvalid read once and the output written once in bfloat16, and the
+    float32 products (q, k and v, the scores and the weighted values of 4
+    heads of 4, fc) at the card's float32 rate."""
+    n = nr * dn
+    nbytes = n * (16 + 1 + 16) * 2
+    flops = 2.0 * n * (16 * 48 + 16 * 16) + 2.0 * 2 * n * dn * 16
+    t_bytes, t_flops = nbytes / HBM_BYTES_S, flops / PEAK_FLOPS[F32]
+    return (max(t_bytes, t_flops) * 1e3,
+            "bytes" if t_bytes >= t_flops else "operations", nbytes, flops)
+
+
+def attn_kernel_group(card: str) -> dict:
+    """The ray attention kernel at the walkthrough's call: ptxas's
+    registers (no stack frame, no spills), the kernel in the depth-major
+    and the ray-major layout against the plain bfloat16 chain (the
+    position add and ``MultiHeadAttention``), both against the attention
+    in float64 (the kernel's mean gap within 1.25x the plain chain's, its
+    largest within 2x plus one bfloat16 step of the scale), CUDA-event
+    times of the kernel (two turns), the plain chain and one PyTorch
+    yardstick (``scaled_dot_product_attention`` and ``layer_norm``, which
+    the port never calls; masked queries as q = 0) beside the bounds, one
+    ``attn_fused`` launch a call, and a depth-major ``IBRNetWithNeuRay``
+    call on the card taking the kernel once.  Returns the kernel-table
+    row."""
+    t0 = time.perf_counter()
+    ptx = {k: v for k, v in ptxas_kernels(_build.BUILD_INFO["log"]).items()
+           if "ray_attention_kernel" in k}
+    emit({"phase": "attn_build", "ptxas": ptx, "card": card})
+    if len(ptx) != 1:
+        raise AssertionError(f"ptxas reported {len(ptx)} attention kernels")
+    (regs,) = ptx.values()
+    if regs.get("stack") or regs.get("spill_stores") or \
+            regs.get("spill_loads"):
+        raise AssertionError(f"ray_attention_kernel: stack or spills {regs}")
+    torch.manual_seed(0)
+    net = agg_net.IBRNetWithNeuRay().cuda()
+    nr, dn = ATTN_RAYS, ATTN_SAMPLES
+    packed = net.packed_attention_weights(torch.zeros(1, device="cuda"))
+    pos = torch.from_numpy(agg_net.sinusoid_pos_encoding(dn, 16)).cuda()
+    pos_bf = pos.to(BF16)
+    attn = net.ray_attention.to(BF16)
+    w = rak.unpack_attention_weights(packed)
+    wqkv = torch.cat([w["wq"], w["wk"], w["wv"]]).to("cuda", BF16)
+    wfc = w["fc"].to("cuda", BF16)
+    ln = (w["gamma"].to("cuda", BF16), w["beta"].to("cuda", BF16))
+    row = {"name": "ray_attention", "route": "cuda",
+           "source": "panogrf_tpu_torch/csrc/ray_attention.cu",
+           "replaces": None, "shape": [nr, dn], "dtype": "bfloat16",
+           "registers": regs.get("registers"),
+           "spills": regs.get("spill_stores", 0) + regs.get("spill_loads", 0)}
+    with torch.inference_mode():
+        for rn in (ATTN_RN, 1):
+            geo, nvalid = attn_operands(nr, dn, rn, seed=9 + rn)
+
+            def kernel():
+                return rak.ray_attention(geo, nvalid, pos, packed, dn, rn)
+
+            def plain():
+                x = rak.ray_major(geo, dn, rn) + pos_bf
+                mask = (rak.ray_major(nvalid, dn, rn)[..., 0] > 1).to(BF16)
+                return attn(x, mask[..., None])
+
+            def library():
+                x = rak.ray_major(geo, dn, rn) + pos_bf
+                valid = rak.ray_major(nvalid, dn, rn) > 1
+                q, k, v = (t.reshape(nr, dn, 4, 4).transpose(1, 2) for t in
+                           torch.nn.functional.linear(x, wqkv).split(16, -1))
+                q = q * valid[:, None].to(BF16)
+                o = torch.nn.functional.scaled_dot_product_attention(q, k, v)
+                y = torch.nn.functional.linear(
+                    o.transpose(1, 2).reshape(nr, dn, 16), wfc) + x
+                return torch.nn.functional.layer_norm(y, (16,), *ln, 1e-6)
+            got, ref, lib = kernel(), plain(), library()
+            exact = rak.ray_attention_reference(geo.double(), nvalid, pos,
+                                                packed, dn, rn)
+            dk, dp = (got.double() - exact).abs(), (ref.double() - exact).abs()
+            scale = max(exact.abs().max().item(), 1.0)
+            rec = {"phase": "attn_kernel", "rays": nr, "samples": dn,
+                   "layout": "depth_major" if rn > 1 else "ray_major",
+                   "card": card, "max_gap": dk.max().item(),
+                   "mean_gap": dk.mean().item(),
+                   "plain_max_gap": dp.max().item(),
+                   "plain_mean_gap": dp.mean().item(),
+                   "library_max_gap": (lib.double() - exact).abs().max()
+                   .item()}
+            ok = bool(torch.isfinite(got).all()) and \
+                dk.mean() <= 1.25 * dp.mean() + 1e-6 and \
+                dk.max() <= 2 * dp.max() + 2 ** -8 * scale
+            del exact, dk, dp
+            fused_mlp.reset_launches()
+            turns = [event_time_ms(kernel, 50) for _ in range(2)]
+            calls = fused_mlp.VARIANT_LAUNCHES["attn_fused"]
+            bound, by, nbytes, flops = attn_bounds_ms(nr, dn)
+            ms = statistics.mean(turns)
+            rec.update({"ms": ms, "ms_turns": turns,
+                        "plain_ms": event_time_ms(plain, 10),
+                        "library_ms": event_time_ms(library, 10),
+                        "profiler_ms": us_to_ms(profiler_time_us(kernel, 20)),
+                        "bound_ms": bound, "bound_by": by,
+                        "bound_bytes": nbytes, "bound_flops": flops,
+                        "roofline_pct": 100 * bound / ms,
+                        "attn_fused_launches": calls})
+            emit(rec)
+            if not ok or calls != 2 * (3 + 50):
+                raise AssertionError(f"attn_kernel: {rec}")
+            key = "" if rn > 1 else "_ray_major"
+            row.update({f"ms{key}": ms, f"plain_ms{key}": rec["plain_ms"],
+                        f"library_ms{key}": rec["library_ms"],
+                        f"max_abs_err{key}": rec["max_gap"]})
+            row.update(bound_ms=bound, bound_by=by)
+        # a depth-major aggregation call of 4 frames of 1024 rays, 64
+        # samples, 2 views: one launch of each kernel
+        qn, rn, v = 4, 1024, 2
+        x = [(torch.randn(qn * dn, rn, v, c, device="cuda") * sc).to(BF16)
+             for c, sc in ((35, 0.5), (32, 1.0), (4, 0.3))]
+        x.append((torch.rand(qn * dn, rn, v, 1, device="cuda") > 0.3)
+                 .to(BF16))
+        fused_mlp.reset_launches()
+        out = net.to(BF16)(*x, dnr_dims=(qn, dn, rn))
+        launches = dict(fused_mlp.VARIANT_LAUNCHES)
+    emit({"phase": "attn_forward", "launches": launches,
+          "finite": bool(torch.isfinite(out).all()),
+          "group_seconds": time.perf_counter() - t0})
+    if (launches["attn_fused"], launches["attn_plain"],
+            launches["pool_fused"]) != (1, 0, 1) or \
+            not bool(torch.isfinite(out).all()) or \
+            tuple(out.shape) != (qn * rn, dn, 4):
+        raise AssertionError(f"IBRNetWithNeuRay on the card: {launches}")
+    # the kernel's launches on each main path that ran before this group
+    row["launches"] = dict(ATTN_LAUNCHES)
+    return row
+
+
 def orbax_group() -> int:
     """Checkpoint input: ``orbax_reads``, ``orbax_render``, and no module
     of JAX, orbax, tensorstore or zstandard in this process.  Returns the
@@ -3748,7 +3932,7 @@ def orbax_group() -> int:
 PHASES = ("kernels", "serving", "training", "depth_stack",
           "depth_training", "render_cli", "video", "mv_ft", "modes",
           "depth_variants", "data", "parallel", "measure", "profile_tools",
-          "orbax", "pool", "multiview")
+          "orbax", "pool", "multiview", "attn")
 
 
 def main(argv=None) -> int:
@@ -3871,6 +4055,8 @@ def main(argv=None) -> int:
             row_pool["launches"]["multiview pass"] = \
                 mv["pool_launches"]["pool_fused_v3"]
             row_pool["ms_v3"] = mv["kernel"]["ms"]
+        ATTN_LAUNCHES["multiview pass"] = mv["attn_launches"]["attn_fused"]
+    row_attn = attn_kernel_group(smi) if "attn" in phases else {}
     # no path of either package calls mlp3: the main paths launch it 0 times
     # (render_cli asserts its own 0)
     if row3["launches"] != 0:
@@ -3882,7 +4068,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     print(smi)
-    emit({"kernels": [row, row3, row_pool]})
+    emit({"kernels": [row, row3, row_pool, row_attn]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -47,6 +47,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.panogrf_mlp3.restype = i
     lib.panogrf_cross_view_pool.argtypes = [p] * 8 + [i] * 4 + [p]
     lib.panogrf_cross_view_pool.restype = i
+    lib.panogrf_ray_attention.argtypes = [p] * 5 + [i] * 4 + [p]
+    lib.panogrf_ray_attention.restype = i
     return lib
 
 

@@ -30,11 +30,14 @@ MLP3_LAUNCHES = 0
 # and the aggregation net's cross-view pools by path: "pool_fused" for a
 # launch of the cross_view_pool kernel ("pool_fused_v2" to "_v4" by its
 # view count, "pool_points" the (ray, sample) points the launches took),
-# "pool_plain" for a call that ran agg_net.pool_reference
+# "pool_plain" for a call that ran agg_net.pool_reference; and its ray
+# attentions by path: "attn_fused" for a launch of the ray_attention kernel,
+# "attn_plain" for a call that ran agg_net.MultiHeadAttention.forward
 VARIANT_LAUNCHES = {"mlp2_lanes": 0, "mlp2_generic": 0, "mlp3_mma": 0,
                     "mlp3_rows": 0, "mlp3_generic": 0, "pool_fused": 0,
                     "pool_plain": 0, "pool_fused_v2": 0, "pool_fused_v3": 0,
-                    "pool_fused_v4": 0, "pool_points": 0}
+                    "pool_fused_v4": 0, "pool_points": 0, "attn_fused": 0,
+                    "attn_plain": 0}
 
 ACTS = {"none": 0, "elu": 1, "relu": 2, "sigmoid": 3, "softplus": 4}
 MAX_DIN, MAX_HIDDEN, MAX_DOUT = 256, 64, 64

@@ -7,7 +7,8 @@ Module and parameter names follow the reference PyTorch layout
 (``prob_embed.0``, ``agg_impl.base_fc.0``, ``agg_impl.ray_attention.w_qs``,
 ...).  ``_Seq`` is where the ``mlp2`` CUDA kernel enters the path, and
 ``IBRNetWithNeuRay.forward`` where the ``cross_view_pool`` kernel takes the
-place of ``pool_reference``.
+place of ``pool_reference`` and the ``ray_attention`` kernel that of the
+position add and ``MultiHeadAttention.forward``.
 ``ablate_attention`` (measurement only, ``tools/bench.py --ablate attn``)
 passes the pooled features by the ray attention, whose parameters stay.
 """
@@ -21,6 +22,7 @@ from torch import nn
 
 from panogrf_tpu_torch.ops.kernels import cross_view_pool as cvp
 from panogrf_tpu_torch.ops.kernels import fused_mlp
+from panogrf_tpu_torch.ops.kernels import ray_attention as rak
 from panogrf_tpu_torch.ops.kernels.fused_mlp import mlp2_batched
 from panogrf_tpu_torch.utils.spans import span
 
@@ -188,7 +190,8 @@ class IBRNetWithNeuRay(nn.Module):
 
     Inputs are (nr, dn, v, c) ray-major, or (qn*dn, rn, v, c) depth-major
     with ``dnr_dims = (qn, dn, rn)``; only the pooled 16/3/1-channel
-    outputs are transposed to ray-major for the attention.
+    outputs are transposed to ray-major for the attention (the
+    ``ray_attention`` kernel reads geo and nvalid in either layout).
 
     The cross-view pool runs as the ``cross_view_pool`` kernel for bfloat16
     CUDA inputs at in_feat_ch 32 and neuray_in_dim 32 with 2 to 4 views
@@ -198,6 +201,13 @@ class IBRNetWithNeuRay(nn.Module):
     launches by view count (``pool_fused_v2`` to ``pool_fused_v4``) and
     the points they took (``pool_points``): host integers read from the
     shapes.
+
+    The ray attention (the position add, ``MultiHeadAttention``, fc, the
+    residual and the LayerNorm) runs as the ``ray_attention`` kernel for
+    bfloat16 CUDA calls without gradients at d_model 16 with 4 heads of 4
+    and at most ``rak.MAX_SAMPLES`` samples a ray; every other call runs
+    ``MultiHeadAttention.forward``.  ``attn_fused`` and ``attn_plain``
+    count the two paths.  ``ablate_attention`` passes both by.
     """
 
     def __init__(self, neuray_in_dim: int = 32, in_feat_ch: int = 32,
@@ -212,11 +222,17 @@ class IBRNetWithNeuRay(nn.Module):
         self.out_geometry_fc = _Seq((16, 16, 1), final_act="relu")
         self._pos = {}          # (dn, device, dtype) -> position table
         self._packed = None     # (key, the kernel's packed pool weights)
+        self._packed_attn = None  # (key, the attention kernel's weights)
         self._register_load_state_dict_pre_hook(
             IBRNetWithNeuRay._drop_packed, with_module=True)
 
     def _drop_packed(self, *args) -> None:
-        self._packed = None
+        self._packed = self._packed_attn = None
+
+    @staticmethod
+    def _version_key(ps: list) -> tuple:
+        return tuple((p.data_ptr(), None if p.is_inference() else p._version)
+                     for p in ps)
 
     def _pool_params(self) -> list:
         return [p for name in _POOL_DIMS
@@ -232,9 +248,7 @@ class IBRNetWithNeuRay(nn.Module):
         inference mode) other than through ``load_state_dict`` is not
         seen."""
         ps = self._pool_params()
-        key = (like.device, like.dtype,
-               tuple((p.data_ptr(), None if p.is_inference() else p._version)
-                     for p in ps))
+        key = (like.device, like.dtype, self._version_key(ps))
         if self._packed is None or self._packed[0] != key:
             with torch.no_grad():
                 packed = cvp.pack_pool_weights(
@@ -242,6 +256,59 @@ class IBRNetWithNeuRay(nn.Module):
                      for name in _POOL_DIMS}).to(like.device)
             self._packed = (key, packed)
         return self._packed[1]
+
+    def packed_attention_weights(self, like: torch.Tensor) -> torch.Tensor:
+        """The ray attention's weights packed for its kernel
+        (``rak.pack_attention_weights``) on ``like``'s device, packed once
+        and again only after one of its parameters changes or moves, as
+        ``packed_pool_weights`` tells."""
+        key = (like.device,
+               self._version_key(list(self.ray_attention.parameters())))
+        if self._packed_attn is None or self._packed_attn[0] != key:
+            self._packed_attn = (key, rak.pack_attention_weights(
+                self.ray_attention).to(like.device))
+        return self._packed_attn[1]
+
+    def _attention_takes(self, geo: torch.Tensor, nvalid: torch.Tensor,
+                         pos: torch.Tensor, dn: int, rn: int) -> bool:
+        """True when the ray attention of this call runs as the kernel: the
+        device, the dtype, gradients (grad off, or neither the inputs nor the
+        attention's parameters require one), d_model 16 with 4 heads of 4,
+        and the sample count (``rak.takes``)."""
+        a = self.ray_attention
+        if geo.device.type != "cuda" or geo.dtype != torch.bfloat16:
+            return False
+        widths = (a.n_head, a.d_k, a.d_v, *a.w_qs.weight.shape,
+                  *a.w_ks.weight.shape, *a.w_vs.weight.shape,
+                  *a.fc.weight.shape)
+        if widths != (rak.N_HEAD, rak.D_K, rak.D_K) + (rak.D_MODEL,) * 8:
+            return False
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (geo, nvalid, *a.parameters())):
+            return False
+        return rak.takes(geo, nvalid, pos, dn, rn)
+
+    def _attend(self, geo: torch.Tensor, nvalid: torch.Tensor,
+                num_valid_obs: torch.Tensor, dn: int, rn: int,
+                dt: torch.dtype) -> torch.Tensor:
+        """The ray attention from the pool's geo and nvalid (rows
+        (nr / rn, dn, rn)) to the ray-major (nr, dn, 16) features, as the
+        ``ray_attention`` kernel or as the plain chain."""
+        pos = self._pos_encoding(dn, geo.device, torch.float32)
+        if self._attention_takes(geo, nvalid, pos, dn, rn):
+            return rak.ray_attention(cvp.laid_out(geo), nvalid.contiguous(),
+                                     pos, self.packed_attention_weights(geo),
+                                     dn, rn)
+        fused_mlp.VARIANT_LAUNCHES["attn_plain"] += 1
+        mask = (num_valid_obs[..., 0] > 1).to(dt)
+        return self.ray_attention(self._with_position(geo, dn, rn, dt),
+                                  mask[..., None])
+
+    def _with_position(self, geo: torch.Tensor, dn: int, rn: int,
+                       dt: torch.dtype) -> torch.Tensor:
+        """geo ray-major (nr, dn, 16) in ``dt`` plus the position table."""
+        return rak.ray_major(geo, dn, rn).to(dt) + \
+            self._pos_encoding(dn, geo.device, dt)[None]
 
     def _kernel_inputs(self, ts: list) -> list | None:
         """The pool's inputs as the kernel takes them, or None when the
@@ -257,13 +324,14 @@ class IBRNetWithNeuRay(nn.Module):
             return None
         return [cvp.laid_out(t) for t in ts] if cvp.takes(*ts) else None
 
-    def _pos_encoding(self, dn: int, like: torch.Tensor) -> torch.Tensor:
+    def _pos_encoding(self, dn: int, device: torch.device,
+                      dtype: torch.dtype) -> torch.Tensor:
         """The (dn, 16) position table for the pass's sample count (it
         changes with ``fine_depth_use_all`` and count-jitter training)."""
-        key = (dn, like.device, like.dtype)
+        key = (dn, device, dtype)
         if key not in self._pos:
             self._pos[key] = torch.from_numpy(
-                sinusoid_pos_encoding(dn, 16)).to(like.device, like.dtype)
+                sinusoid_pos_encoding(dn, 16)).to(device, dtype)
         return self._pos[key]
 
     def forward(self, rgb_feat, neuray_feat, ray_diff, mask,
@@ -273,7 +341,7 @@ class IBRNetWithNeuRay(nn.Module):
             qn, dn, rn = dnr_dims
             nr = qn * rn
         else:
-            nr, dn = a0, a1
+            nr, dn, rn = a0, a1, 1
         dt = rgb_feat.dtype
         pool_in = [t.reshape(a0 * a1, v, t.shape[-1])
                    for t in (rgb_feat, neuray_feat, ray_diff, mask)]
@@ -289,22 +357,14 @@ class IBRNetWithNeuRay(nn.Module):
                           for name in _POOL_DIMS}
                 geo, rgb_out, nvalid = pool_reference(
                     *pool_in, params, self.geometry_only)
-        if dnr_dims is not None:
-            def to_ray_major(t):
-                c = t.shape[-1]
-                return t.reshape(qn, dn, rn, c).transpose(1, 2) \
-                    .reshape(nr, dn, c)
-            geo = to_ray_major(geo).to(dt)
-            rgb_out = to_ray_major(rgb_out)
-            num_valid_obs = to_ray_major(nvalid).float()
+        rgb_out = rak.ray_major(rgb_out, dn, rn)
+        num_valid_obs = rak.ray_major(nvalid, dn, rn).float()
+        if self.ablate_attention:
+            globalfeat = self._with_position(geo, dn, rn, dt)
         else:
-            geo = geo.reshape(nr, dn, 16).to(dt)
-            rgb_out = rgb_out.reshape(nr, dn, 3)
-            num_valid_obs = nvalid.reshape(nr, dn, 1).float()
-        globalfeat = geo + self._pos_encoding(dn, geo)[None]
-        attn_mask = (num_valid_obs[..., 0] > 1).to(dt)
-        if not self.ablate_attention:
-            globalfeat = self.ray_attention(globalfeat, attn_mask[..., None])
+            with span("agg.attn"):
+                globalfeat = self._attend(geo, nvalid, num_valid_obs, dn, rn,
+                                          dt)
         sigma = self.out_geometry_fc(globalfeat).float()
         sigma = torch.where(num_valid_obs < 1, torch.zeros_like(sigma), sigma)
         return torch.cat([rgb_out.float(), sigma], -1)

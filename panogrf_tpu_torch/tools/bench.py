@@ -13,7 +13,8 @@ depth given, random weights from seed 0) through
 events), ``unit``, ``runs`` and their ``spread``, ``rays_per_sec`` and
 ``vs_baseline`` (null: the JAX tool's 1.0 s/frame baseline was set for
 another chip), the ``mlp2`` kernel's launches in one frame and its
-cross-view pools by path (``pool_fused_launches``, ``pool_plain_launches``),
+cross-view pools and ray attentions by path (``pool_fused_launches``,
+``pool_plain_launches``, ``attn_fused_launches``, ``attn_plain_launches``),
 and the device's name.  The default run also times the turbo point
 (``turbo_ms_per_frame``); ``--video-batch B`` times B poses per pass
 (``render_video_device``, ``video_ms_per_frame``); ``--with-depth-stack``
@@ -368,6 +369,8 @@ def main(argv=None) -> dict:
               "mlp2_lanes_launches": launches["mlp2_lanes"],
               "pool_fused_launches": launches["pool_fused"],
               "pool_plain_launches": launches["pool_plain"],
+              "attn_fused_launches": launches["attn_fused"],
+              "attn_plain_launches": launches["attn_plain"],
               "mlp3_launches": launches["mlp3"]}
 
     if (args.preset == "serving" and not args.ablate and not args.diner
@@ -404,6 +407,8 @@ def main(argv=None) -> dict:
         result["video_mlp2_lanes_launches"] = vl["mlp2_lanes"]
         result["video_pool_fused_launches"] = vl["pool_fused"]
         result["video_pool_plain_launches"] = vl["pool_plain"]
+        result["video_attn_fused_launches"] = vl["attn_fused"]
+        result["video_attn_plain_launches"] = vl["attn_plain"]
 
     if args.roofline and not args.diner and not args.ablate:
         result.update(roofline(model, kw, ref_info, c2w, chunk, clr, dev))

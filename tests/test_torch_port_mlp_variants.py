@@ -100,12 +100,13 @@ def test_every_c_entry_point_is_declared():
     declared = _build._declare(_StandIn())
     entry = _c_entry_points()
     assert set(entry) == {"panogrf_mlp2", "panogrf_mlp3",
-                          "panogrf_cross_view_pool"}
+                          "panogrf_cross_view_pool", "panogrf_ray_attention"}
     assert set(entry) == {k for k in vars(declared) if k.startswith("panogrf_")}
 
 
 @pytest.mark.parametrize("fn", ["panogrf_mlp2", "panogrf_mlp3",
-                                "panogrf_cross_view_pool"])
+                                "panogrf_cross_view_pool",
+                                "panogrf_ray_attention"])
 def test_c_entry_point_matches_ctypes_argtypes(fn):
     """The same number of arguments, ``c_void_p`` for each pointer (and the
     stream), ``c_int`` for each int, an int result."""

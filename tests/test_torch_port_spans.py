@@ -42,6 +42,7 @@ PARENTS = {
     "panogrf.render.gather": {None, "panogrf.render.coarse"},
     "panogrf.render.agg": {None, "panogrf.render.coarse"},
     "panogrf.agg.pool": {"panogrf.render.agg"},
+    "panogrf.agg.attn": {"panogrf.render.agg"},
     "panogrf.stack": {None},
     "panogrf.mono": {None, "panogrf.stack"},
     "panogrf.mvs.sweep": {"panogrf.stack", "panogrf.train.forward"},
@@ -211,7 +212,8 @@ def test_every_span_appears_nested_as_documented(traced):
 
 def test_call_counts_are_the_chunk_counts(traced):
     """A pass enters the coarse span once; each coarse and fine chunk
-    enters the gather, the aggregation and its pool once; a scene enters
+    enters the gather, the aggregation and its pool and attention once; a
+    scene enters
     prepare_ref and the stack once; the stack and the prior each run
     UniFuse once, and the stack and the training step the MVS net's
     sweep and regularisation once."""
@@ -223,6 +225,7 @@ def test_call_counts_are_the_chunk_counts(traced):
         "panogrf.render.gather": coarse + fine,
         "panogrf.render.agg": coarse + fine,
         "panogrf.agg.pool": coarse + fine,
+        "panogrf.agg.attn": coarse + fine,
         "panogrf.stack": 1, "panogrf.mono": 2, "panogrf.mvs.sweep": 2,
         "panogrf.mvs.reg": 2, "panogrf.train.forward": 1,
         "panogrf.train.backward": 1, "panogrf.train.update": 1}
